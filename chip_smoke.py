@@ -1,0 +1,390 @@
+"""Smoke run of the PyTorch / CUDA port (hail_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from hail_tpu_torch/csrc, holds each
+against its plain torch version on the card at the shapes of the main path,
+then drives the public entry points at the benchmark's size:
+`hl.linear_regression_rows` (GWAS, 10,000 samples x 4 x 8,192 variants,
+2% missing, 4 covariates) and `hl.identity_by_descent` (1,000 samples x
+16,384 variants). It fails (non-zero exit, no result line) when there is no
+card, when a kernel does not build, launch or agree, when the main path did
+not launch every kernel, or when the results disagree with numpy.
+
+The last lines of stdout: the method rates as JSON, the kernels as JSON,
+the card's name and power limit as nvidia-smi reports them, and
+`{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 20240611
+N_SAMPLES = 10_000
+BLOCK_R = 8_192
+N_PARTS = 4
+K = 4                      # covariates incl. the intercept
+IBD_SAMPLES = 1_000
+IBD_VARIANTS = 16_384
+MISSING = 0.02
+CHECK_ROWS = 256
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno):
+    """A MatrixTable of packed GT calls in `n_parts` partitions, built as
+    bench.py's build_mt builds it: uniform n_alt in {0,1,2}, 2% missing.
+    Returns (mt, nalt blocks, missing blocks, column arrays)."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.call import pack_diploid
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ir.columns import (Batch, LocusColumn, ObjectColumn,
+                                           PrimitiveColumn)
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    rg = default_reference()
+    mbs, nalts, misses = [], [], []
+    for p in range(n_parts):
+        nalt = rng.integers(0, 3, (block_r, n_samples)).astype(np.int32)
+        miss = rng.random((block_r, n_samples)) < MISSING
+        gt = pack_diploid((nalt == 2).astype(np.int32),
+                          (nalt >= 1).astype(np.int32))
+        pos = np.arange(p * block_r, (p + 1) * block_r, dtype=np.int32) + 10_000
+        alleles = np.empty(block_r, dtype=object)
+        alleles[:] = [['A', 'T']] * block_r
+        rows = Batch({
+            'locus': LocusColumn(ht.tlocus(rg), np.zeros(block_r, np.int32), pos),
+            'alleles': ObjectColumn(ht.tarray(ht.tstr), alleles),
+        }, block_r)
+        mbs.append(MatrixBatch(rows, {'GT': PrimitiveColumn(ht.tcall, gt, miss)}))
+        nalts.append(nalt)
+        misses.append(miss)
+    col_fields = {'s': ObjectColumn(
+        ht.tstr, np.asarray([f's{i}' for i in range(n_samples)], object))}
+    col_t = {'s': ht.tstr}
+    cols_np = {}
+    if with_pheno:
+        for name in ['pheno'] + [f'c{i}' for i in range(K - 1)]:
+            cols_np[name] = rng.normal(size=n_samples)
+            col_fields[name] = PrimitiveColumn(ht.tfloat64, cols_np[name])
+            col_t[name] = ht.tfloat64
+    row_t = ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr))
+    mt = MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), Batch(col_fields, n_samples), ['locus', 'alleles'], ['s'],
+        row_t, ht.tstruct(**col_t), ht.tstruct(GT=ht.tcall), mbs))
+    return mt, nalts, misses, cols_np
+
+
+def timed_ms(fn, reps: int = 10) -> float:
+    """Mean device milliseconds per call, from CUDA events after a warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_times(kernel, plain):
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
+    p1 = timed_ms(plain)
+    k1 = timed_ms(kernel)
+    k2 = timed_ms(kernel)
+    p2 = timed_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def exact_setup(cols_np):
+    """The exact path's host operands for y = pheno, covariates
+    [1, c0, c1, c2], as linear_regression_rows makes them."""
+    n = cols_np['pheno'].shape[0]
+    cov = np.stack([np.ones(n)] + [cols_np[f'c{i}'] for i in range(K - 1)],
+                   axis=1)
+    Ys = cols_np['pheno'][:, None]
+    Q, _ = np.linalg.qr(cov)
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(axis=0) - (Qty * Qty).sum(axis=0)
+    return Q, Ys, Qty, yyp, n - K - 1
+
+
+def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
+    """Each kernel against its plain version on the card, at the main
+    path's shapes. Returns the kernel records of the result line."""
+    from hail_tpu_torch.ops import ibs, linreg_i8 as li
+    nalts, misses = mt_parts
+    records = []
+
+    # K4 at one partition of the GWAS: 8,192 x 10,000
+    from hail_tpu_torch.genetics.call import pack_diploid
+    packed = pack_diploid((nalts[0] == 2).astype(np.int32),
+                          (nalts[0] >= 1).astype(np.int32))
+    u8 = torch.from_numpy(li.pack_gt_2bit(packed, misses[0])).to(dev)
+    n = nalts[0].shape[1]
+    gz8, m8 = li.unpack_gt_2bit(u8, n)
+    gz8_p, m8_p = li._unpack_plain(u8, n)
+    torch.cuda.synchronize()
+    err4 = max(int((gz8 != gz8_p).sum()), int((m8 != m8_p).sum()))
+    if err4:
+        raise AssertionError(f'K4 unpack: {err4} entries differ from plain')
+    want = np.where(misses[0], 0, nalts[0])
+    if not np.array_equal(gz8.cpu().numpy(), want):
+        raise AssertionError('K4 unpack: gz8 differs from the numpy decode')
+    ms, plain_ms = compare_times(lambda: li.unpack_gt_2bit(u8, n),
+                                 lambda: li._unpack_plain(u8, n))
+    log(f'K4 unpack_gt_2bit {tuple(u8.shape)} -> 2 x {tuple(gz8.shape)}: '
+        f'bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+    records.append(dict(name='unpack_gt_2bit', route='cuda',
+                        source='hail_tpu_torch/csrc/unpack_2bit.cu',
+                        replaces='hail_tpu/ops/linreg_i8.py:316',
+                        max_abs_err=float(err4), ms=ms, plain_ms=plain_ms))
+
+    # K3 on that partition's (gz8, m8) against W = [Q | Ys] planes (C = 35)
+    Q, Ys, Qty, yyp, dof = exact_setup(cols_np)
+    Wd, scd, Qtyd, yypd, dd = li.exact_consts(Q, Ys, Qty, yyp, dof, dev)
+    part_k = li.exact_pass(gz8, m8, Wd)
+    part_p = li._exact_pass_plain(gz8, m8, Wd)
+    torch.cuda.synchronize()
+    err3 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               for a, b in zip(part_k, part_p))
+    if err3:
+        raise AssertionError(f'K3 exact pass: int32 partials differ by {err3}')
+    out_k = li._exact_core(gz8, m8, Wd, scd, Qtyd, yypd, dd, K)
+    out_p = li._exact_epilogue(*part_p, n, scd, Qtyd, yypd, dd, K)
+    for a, b in zip(out_k, out_p):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError('K3 exact core: NaN positions differ')
+        np.testing.assert_allclose(a, b, rtol=1e-10, equal_nan=True)
+    ms, plain_ms = compare_times(lambda: li.exact_pass(gz8, m8, Wd),
+                                 lambda: li._exact_pass_plain(gz8, m8, Wd))
+    log(f'K3 exact_pass gz8/m8 {tuple(gz8.shape)} x Wdig {tuple(Wd.shape)}: '
+        f'int32 partials bit-equal, f64 outputs within rtol 1e-10; '
+        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+    records.append(dict(name='linreg_exact_pass', route='cuda',
+                        source='hail_tpu_torch/csrc/linreg_exact.cu',
+                        replaces='hail_tpu/ops/linreg_i8.py:246',
+                        max_abs_err=float(err3), ms=ms, plain_ms=plain_ms))
+
+    # K2 at the IBD shape: 16,384 variants x 1,000 samples
+    het, hom_ref, hom_var, called = (torch.from_numpy(a).to(dev)
+                                     for a in ibd_ind)
+    codes = ibs.genotype_codes(het, hom_ref, hom_var)
+    got = ibs.ibs_counts_codes(codes)
+    ref = ibs._ibs_plain(het, hom_ref, hom_var, called)
+    torch.cuda.synchronize()
+    err2 = max(int((a - b).abs().max()) for a, b in zip(got, ref))
+    if err2:
+        raise AssertionError(f'K2 IBS: counts differ by up to {err2}')
+    ms, plain_ms = compare_times(
+        lambda: ibs.ibs_counts_codes(codes),
+        lambda: ibs._ibs_plain(het, hom_ref, hom_var, called))
+    log(f'K2 ibs_counts codes {tuple(codes.shape)} -> 3 x {tuple(got[0].shape)}: '
+        f'bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+    records.append(dict(name='ibs_counts', route='cuda',
+                        source='hail_tpu_torch/csrc/ibs.cu',
+                        replaces='hail_tpu/ops/ibs.py:72',
+                        max_abs_err=float(err2), ms=ms, plain_ms=plain_ms))
+    return records
+
+
+def numpy_ols(nalt, miss, cols_np):
+    """Independent f64 OLS of pheno ~ [1, c0, c1, c2, x] per row, x mean-
+    imputed: (beta, se, t) of x."""
+    n = cols_np['pheno'].shape[0]
+    cov = np.stack([np.ones(n)] + [cols_np[f'c{i}'] for i in range(K - 1)],
+                   axis=1)
+    y = cols_np['pheno']
+    out = np.empty((nalt.shape[0], 3))
+    for r in range(nalt.shape[0]):
+        x = nalt[r].astype(np.float64)
+        x[miss[r]] = x[~miss[r]].mean()
+        X = np.concatenate([cov, x[:, None]], axis=1)
+        coef, _, _, _ = np.linalg.lstsq(X, y, rcond=None)
+        resid = y - X @ coef
+        sigma2 = resid @ resid / (n - X.shape[1])
+        se = np.sqrt(sigma2 * np.linalg.inv(X.T @ X)[-1, -1])
+        out[r] = coef[-1], se, coef[-1] / se
+    return out
+
+
+def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
+    """hl.linear_regression_rows at the bench's size: cold, warm twice, and
+    warm with every stats column on the host. Returns the rates."""
+    from hail_tpu_torch.ops import _kernels, devcache
+    covs = [1.0] + [getattr(mt, f'c{i}') for i in range(K - 1)]
+
+    def run_count():
+        t0 = time.perf_counter()
+        res = hl.linear_regression_rows(y=mt.pheno, x=mt.GT.n_alt_alleles(),
+                                        covariates=covs)
+        n = res._force_count()
+        dt = time.perf_counter() - t0
+        if n != n_variants:
+            raise AssertionError(f'_force_count {n} != {n_variants}')
+        return n_variants / dt
+
+    before = dict(_kernels.launches)
+    cold = run_count()
+    if (_kernels.launches['hail_unpack_gt_2bit'] == before['hail_unpack_gt_2bit']
+            or _kernels.launches['hail_linreg_exact_pass']
+            == before['hail_linreg_exact_pass']):
+        raise AssertionError(f'GWAS cold call did not launch K3 and K4: '
+                             f'{_kernels.launches}')
+    hits = devcache.hits
+    warm = [run_count(), run_count()]
+    if devcache.hits <= hits:
+        raise AssertionError(f'warm call missed devcache: {devcache.stats()}')
+
+    t0 = time.perf_counter()
+    res = hl.linear_regression_rows(y=mt.pheno, x=mt.GT.n_alt_alleles(),
+                                    covariates=covs)
+    fields = ('beta', 'standard_error', 't_stat', 'p_value')
+    got = {f: [] for f in fields}
+    for b in res._stage.collect_batches():
+        for f in fields:
+            got[f].append(np.asarray(b.columns[f].values, np.float64))
+    host = n_variants / (time.perf_counter() - t0)
+    got = {f: np.concatenate(v) for f, v in got.items()}
+    for f, v in got.items():
+        if v.shape != (n_variants,) or not np.isfinite(v).all():
+            raise AssertionError(f'{f}: shape {v.shape} or non-finite values')
+    want = numpy_ols(nalts[0][:CHECK_ROWS], misses[0][:CHECK_ROWS], cols_np)
+    for j, f in enumerate(fields[:3]):
+        np.testing.assert_allclose(got[f][:CHECK_ROWS], want[:, j], rtol=1e-10,
+                                   err_msg=f'{f} vs numpy f64 OLS')
+    log(f'GWAS {n_variants} variants x {cols_np["pheno"].shape[0]} samples: '
+        f'cold {cold:.1f} v/s, warm {warm[0]:.1f} and {warm[1]:.1f} v/s, '
+        f'host-materialized {host:.1f} v/s; beta/se/t of {CHECK_ROWS} rows '
+        f'match numpy f64 OLS at rtol 1e-10; devcache {devcache.stats()}')
+    return dict(cold=cold, warm=warm, host_materialized=host)
+
+
+def ibd_method(hl, mt):
+    """hl.identity_by_descent at 1,000 samples x 16,384 variants: the pair
+    rows and the seconds of the call."""
+    from hail_tpu_torch.ops import _kernels
+    before = _kernels.launches['hail_ibs_counts']
+    t0 = time.perf_counter()
+    rows = hl.identity_by_descent(mt).collect()
+    total = time.perf_counter() - t0
+    if _kernels.launches['hail_ibs_counts'] == before:
+        raise AssertionError('identity_by_descent did not launch K2')
+    return rows, total
+
+
+def ibd_check(rows, total, mt, dev):
+    """The method's counts against K2 and its plain version on the same
+    indicators, finite Z's, and the kernel's share of the call."""
+    from hail_tpu_torch.methods.relatedness import _gt_indicator_matrices
+    from hail_tpu_torch.ops import ibs
+    n = mt.count_cols()
+    if len(rows) != n * (n - 1) // 2:
+        raise AssertionError(f'{len(rows)} pairs, expected {n * (n - 1) // 2}')
+
+    het, hom_ref, hom_var, called, _ = _gt_indicator_matrices(mt.GT)
+    ind = [torch.from_numpy(a).to(dev) for a in (het, hom_ref, hom_var, called)]
+    got = ibs.ibs_counts(*ind)
+    ref = ibs._ibs_plain(*ind)
+    for name, a, b in zip(('ibs0', 'ibs1', 'ibs2'), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f'{name}: kernel and plain version differ')
+    m0, m1, m2 = (a.cpu().numpy() for a in got)
+    for r in rows[:: max(1, len(rows) // 1000)]:
+        i, j = int(r.i[1:]), int(r.j[1:])
+        if (r.ibs0, r.ibs1, r.ibs2) != (m0[i, j], m1[i, j], m2[i, j]):
+            raise AssertionError(f'pair ({r.i}, {r.j}): method counts differ')
+        if not all(np.isfinite([r.ibd.Z0, r.ibd.Z1, r.ibd.Z2, r.ibd.PI_HAT])):
+            raise AssertionError(f'pair ({r.i}, {r.j}): non-finite Z')
+    codes = ibs.genotype_codes(*ind[:3])
+    kernel_s = timed_ms(lambda: ibs.ibs_counts_codes(codes), reps=3) / 1e3
+    log(f'IBD {n} samples x {het.shape[0]} variants: {len(rows)} pairs in '
+        f'{total:.3f} s; K2 kernel {kernel_s:.4f} s, host (indicators, PLINK '
+        f'epilogue, pair rows) {total - kernel_s:.3f} s; IBS matrices equal '
+        f'the plain version')
+    return dict(total_s=total, kernel_s=kernel_s, host_s=total - kernel_s)
+
+
+def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
+        ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
+    import hail_tpu_torch as hl
+    from hail_tpu_torch.ops import _kernels
+    from hail_tpu_torch.methods.relatedness import _gt_indicator_matrices
+
+    t0 = time.perf_counter()
+    if dev.type == 'cuda':
+        _kernels.library()
+    log(f'build: kernels ready in {time.perf_counter() - t0:.2f} s '
+        f'(nvcc for sm_90a from hail_tpu_torch/csrc)')
+
+    hl.init(device=str(dev), global_seed=0, quiet=True)
+    import scipy.stats  # noqa: F401  (set-up: the p-values import it once)
+    rng = np.random.default_rng(SEED)
+    mt, nalts, misses, cols_np = build_mt(hl, rng, n_samples, block_r,
+                                          n_parts, with_pheno=True)
+    mt_ibd, _, _, _ = build_mt(hl, rng, ibd_samples, ibd_variants, 1,
+                               with_pheno=False)
+    ibd_ind = _gt_indicator_matrices(mt_ibd.GT)[:4]
+
+    records = phase_kernels(dev, (nalts, misses), cols_np, ibd_ind)
+
+    # the main path: only the method calls' own launches count
+    _kernels.reset_launch_counts()
+    gwas = phase_gwas(hl, mt, n_parts * block_r, nalts, misses, cols_np)
+    ibd_rows, ibd_total = ibd_method(hl, mt_ibd)
+    counts = dict(_kernels.launches)
+    ibd = ibd_check(ibd_rows, ibd_total, mt_ibd, dev)
+    names = {'unpack_gt_2bit': 'hail_unpack_gt_2bit',
+             'linreg_exact_pass': 'hail_linreg_exact_pass',
+             'ibs_counts': 'hail_ibs_counts'}
+    for rec in records:
+        rec['launches'] = counts[names[rec['name']]]
+        if not rec['launches']:
+            raise AssertionError(f'the main path never launched {rec["name"]}')
+    hl.stop()
+
+    loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+        m in ('jax', 'hail_tpu') or m.startswith(('jax.', 'hail_tpu.')))]
+    if loaded:
+        raise AssertionError(f'modules of the reference were loaded: {loaded}')
+    log('imports: no jax and no hail_tpu module loaded')
+    return records, gwas, ibd
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False; this run needs '
+              'an NVIDIA card', file=sys.stderr)
+        return 2
+    dev = torch.device('cuda', 0)
+    name = torch.cuda.get_device_name(0)
+    log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, {name}')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    records, gwas, ibd = run(dev)
+    order = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+             'ms', 'plain_ms')
+    print(json.dumps({'gwas_variants_per_s': gwas, 'ibd_seconds': ibd}))
+    print(json.dumps({'kernels': [{k: r[k] for k in order} for r in records]}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,168 @@
+"""Copy the jax-free host plane of `hail_tpu` into `hail_tpu_torch`.
+
+The MatrixTable/Table/expression machinery is numpy host code that both
+packages share in substance. This script copies the modules the port's
+methods import, renames their `hail_tpu` imports to `hail_tpu_torch`, and
+applies the few edits at the points where the reference reaches device
+code that is not ported yet (each names its ROADMAP item). Re-running it
+reproduces the committed copies exactly; an edit whose anchor text is not
+found once fails the run.
+
+    python3 hail_tpu_torch/copy_host_plane.py
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, 'hail_tpu')
+DST = os.path.join(ROOT, 'hail_tpu_torch')
+
+# files and whole directories, relative to the package root
+COPIED = [
+    'types.py', 'utils', 'genetics', 'expr', 'fs',
+    'ir/__init__.py', 'ir/columns.py', 'ir/nodes.py', 'ir/arrays.py',
+    'ir/agg.py', 'ir/relational_ir.py', 'ir/memcache.py', 'ir/semhash.py',
+    'ir/random.py', 'ir/simplify.py', 'ir/interval_filters.py',
+    'backend/__init__.py', 'backend/backend.py',
+    'matrixtable.py', 'table.py',
+    'stats/__init__.py', 'stats/rmath.py', 'stats/_fdlibm.py',
+    'stats/toms708.py', 'stats/exact_tests.py', 'stats/hwe.py',
+    'stats/genchisq.py',
+    'resources/reference',
+]
+
+_IMPORT_RE = re.compile(
+    r"""(\bimport |\bfrom |__import__\(['"]|_imp\(['"])hail_tpu\b""")
+
+_ENTRY_AGG_OLD = '''        import os
+        if os.environ.get('HAIL_TPU_NO_DEVICE_AGG') == '1' or not agg_nodes:
+            return None
+        from .ops import entry_agg as ea
+        planned = ea.plan_device_entry_agg(agg_nodes)
+        if planned is None:
+            return None
+        leaves, plans = planned
+        jitted = ea.cached_kernel(agg_nodes, plans, sorted(leaves.keys()))
+
+        def part(i_ctx):
+            i, ctx = i_ctx
+            mb = self._stage.partition_fn(ctx)
+            if mb.n_rows == 0 or self._stage.n_cols == 0:
+                return aggmod.partial_aggregate(
+                    agg_nodes, self._entry_env(mb, i), (0, 1),
+                    extra_include=MatrixTable._unfiltered_mask(mb))
+            st = ea.run_device_entry_agg(self, mb, i, leaves, plans, jitted)
+            if st is None:
+                return aggmod.partial_aggregate(
+                    agg_nodes, self._entry_env(mb, i), (0, 1),
+                    extra_include=MatrixTable._unfiltered_mask(mb))
+            return st
+
+        partials = Env.backend().map_collect(
+            list(enumerate(self._stage.contexts)), part)
+        from .table import _tree_combine
+        state = _tree_combine(agg_nodes, partials)
+        col = aggmod.finalize_aggregate(e._ir, agg_nodes, state,
+                                        self._globals_env())
+        vals = col.to_pylist()
+        out = vals[0] if vals else None
+        if not _localize:
+            from .expr.functions import literal, missing
+            return (literal(out, e.dtype) if out is not None
+                    else missing(e.dtype),)
+        return (out,)
+'''
+_ENTRY_AGG_NEW = '''        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 7): the host
+        # evaluator runs every entry aggregation, as the reference's does
+        # under HAIL_TPU_NO_DEVICE_AGG=1.
+        return None
+'''
+
+_DEVICE_SORT_OLD = '''    from .ops.device_sort import device_range_sort, sortable_single_key
+    sk = sortable_single_key(batches, specs)
+    if sk is None:
+        return None
+    keys, asc = sk
+    order = device_range_sort(keys, asc)
+    if order is None:
+        return None
+    merged = Batch.concat(batches) if len(batches) > 1 else batches[0]
+    import jax
+    nd = len(jax.devices())
+    bounds = [(i * len(order)) // nd for i in range(nd + 1)]
+    parts = [merged.gather(order[lo:hi])
+             for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
+    return TableStage.from_batches(stage.globals, [], stage.row_type,
+                                   parts or [Batch.empty(stage.row_type)])
+'''
+_DEVICE_SORT_NEW = '''    # ops/device_sort is not ported yet (ROADMAP queue 1, item 9): the host
+    # sort runs, as the reference's does under use_device_sort=0. Its port
+    # splits the order over torch.cuda.device_count() devices on CUDA, else 1.
+    return None
+'''
+
+# stats/linear_mixed_model (jax) is not ported yet (ROADMAP queue 1, item 8)
+_STATS_INIT_OLD = '''from .linear_mixed_model import LinearMixedModel
+
+__all__ = ['hwe_test', 'hwe_test_vec', 'LinearMixedModel']
+'''
+_STATS_INIT_NEW = '''
+__all__ = ['hwe_test', 'hwe_test_vec']
+'''
+
+# the device cache's default budget is sized for the H100's 80 GB, not the
+# reference's 16 GiB TPU (ops/devcache.py holds the same default)
+_CACHE_FLAG_OLD = '''str(8 * 1024 * 1024 * 1024)),'''
+_CACHE_FLAG_NEW = '''str(16 * 1024 * 1024 * 1024)),'''
+
+# (file, anchor, replacement): each anchor must occur exactly once
+EDITS = [
+    ('backend/backend.py', _CACHE_FLAG_OLD, _CACHE_FLAG_NEW),
+    ('matrixtable.py', _ENTRY_AGG_OLD, _ENTRY_AGG_NEW),
+    ('table.py', _DEVICE_SORT_OLD, _DEVICE_SORT_NEW),
+    ('stats/__init__.py', _STATS_INIT_OLD, _STATS_INIT_NEW),
+]
+
+
+def _copy_file(src: str, dst: str) -> None:
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    if not src.endswith('.py'):
+        shutil.copyfile(src, dst)
+        return
+    with open(src, encoding='utf-8') as f:
+        text = f.read()
+    with open(dst, 'w', encoding='utf-8') as f:
+        f.write(_IMPORT_RE.sub(r'\1hail_tpu_torch', text))
+
+
+def copy_all() -> None:
+    for rel in COPIED:
+        src = os.path.join(SRC, rel)
+        if os.path.isdir(src):
+            for dirpath, dirnames, filenames in os.walk(src):
+                dirnames[:] = [d for d in dirnames if d != '__pycache__']
+                for fn in filenames:
+                    if fn.endswith('.pyc'):
+                        continue
+                    s = os.path.join(dirpath, fn)
+                    _copy_file(s, os.path.join(DST, os.path.relpath(s, SRC)))
+        else:
+            _copy_file(src, os.path.join(DST, rel))
+    for rel, old, new in EDITS:
+        path = os.path.join(DST, rel)
+        with open(path, encoding='utf-8') as f:
+            text = f.read()
+        n = text.count(old)
+        if n != 1:
+            sys.exit(f'{rel}: edit anchor found {n} times, expected 1')
+        with open(path, 'w', encoding='utf-8') as f:
+            f.write(text.replace(old, new))
+
+
+if __name__ == '__main__':
+    copy_all()

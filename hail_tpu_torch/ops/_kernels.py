@@ -1,0 +1,134 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources under `hail_tpu_torch/csrc/` compile with `nvcc` for `sm_90a`
+into one shared library with a plain C interface, built at first use into
+`hail_tpu_torch/_build/<hash of the sources>/` and loaded with ctypes.
+Nothing here runs at import: the CPU tests import every module on a
+machine without `nvcc` or a card.
+
+Each C entry point returns `cudaGetLastError()` after its launch;
+`launch()` raises on a non-zero value, so a refused launch is an error at
+the call, not a silent no-op. `launches` counts the launches of each kernel
+(the wrappers add one where they launch and nowhere else), so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, 'csrc')
+_BUILD = os.path.join(_PKG, '_build')
+_LIB_NAME = 'libhail_kernels.so'
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+# C entry point -> argument types (every pointer and the stream last as
+# c_void_p, so ctypes never narrows them to 32 bits)
+_SIGNATURES = {
+    'hail_linreg_exact_pass': [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _P, _P],
+    'hail_unpack_gt_2bit': [_P, _LL, _I, _I, _P, _P, _P],
+    'hail_ibs_counts': [_P, _I, _I, _P, _P, _P, _P],
+}
+
+launches: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _sources():
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith(('.cu', '.cuh')))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which('nvcc'),
+                 os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                              'bin', 'nvcc')):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found: the CUDA kernels are built from '
+                       'hail_tpu_torch/csrc with the CUDA toolkit')
+
+
+def _build() -> str:
+    """Compile the sources (if this hash is not built yet) and return the
+    library path. The build writes to a temporary name and renames, so
+    concurrent builders never load a half-written library."""
+    srcs = _sources()
+    h = hashlib.sha256()
+    for p in srcs:
+        h.update(os.path.basename(p).encode())
+        with open(p, 'rb') as f:
+            h.update(f.read())
+    out_dir = os.path.join(_BUILD, h.hexdigest()[:16])
+    lib = os.path.join(out_dir, _LIB_NAME)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f'{lib}.{os.getpid()}.tmp'
+    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+           '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+           '-o', tmp] + [p for p in srcs if p.endswith('.cu')]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, 'nvcc.log'), 'w') as f:
+        f.write(' '.join(cmd) + '\n' + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(_build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name` on torch's current CUDA stream (appended as
+    the last argument) and raise if the launch was refused."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f'{name}: CUDA error {err} at launch')
+    launches[name] += 1
+
+
+def check(t, name: str, dtype, shape=None) -> None:
+    """Validate a tensor handed to a kernel: on CUDA, of `dtype`, C-contiguous
+    and, when given, of `shape`."""
+    if t.device.type != 'cuda':
+        raise ValueError(f'{name}: expected a CUDA tensor, got {t.device}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, '
+                         f'got {tuple(t.shape)}')

@@ -1,0 +1,127 @@
+"""Each hand-written CUDA kernel of hail_tpu_torch against its plain torch
+version, on the card. Without one every test skips. This file imports
+neither jax nor hail_tpu, so on a machine without jax it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+All three kernels are integer kernels: their results are bit-equal to the
+plain versions (and to an int64 numpy oracle). Shapes cross the kernels'
+edges: N not a multiple of 4 (K4), R not a multiple of the 8 rows a K3
+block owns and C above its 40-column chunk, n not a multiple of K2's
+64-sample tile and m not a multiple of its 128-variant stage.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (torch.cuda.is_available() is False)')
+    return torch.device('cuda', 0)
+
+
+@pytest.mark.parametrize('R,N', [(1, 1), (3, 7), (64, 1003), (300, 10000)])
+def test_unpack_matches_plain(dev, R, N):
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    gen = torch.Generator().manual_seed(R * N)
+    u8 = torch.randint(0, 256, (R, -(-N // 4)), dtype=torch.uint8,
+                       generator=gen).to(dev)
+    before = _kernels.launches['hail_unpack_gt_2bit']
+    gz8, m8 = li.unpack_gt_2bit(u8, N)
+    assert _kernels.launches['hail_unpack_gt_2bit'] == before + 1
+    gz8_p, m8_p = li._unpack_plain(u8, N)
+    torch.cuda.synchronize()
+    assert torch.equal(gz8, gz8_p) and torch.equal(m8, m8_p)
+
+
+def test_unpack_rejects_bad_input(dev):
+    from hail_tpu_torch.ops import linreg_i8 as li
+    with pytest.raises(ValueError, match='cannot hold'):
+        li.unpack_gt_2bit(torch.zeros((2, 3), dtype=torch.uint8, device=dev), 13)
+    with pytest.raises(TypeError):
+        li.unpack_gt_2bit(torch.zeros((2, 3), dtype=torch.int8, device=dev), 12)
+
+
+@pytest.mark.parametrize('R,N,C,gmax', [(1, 1, 7, 2), (37, 1003, 35, 2),
+                                        (100, 3000, 84, 2), (9, 513, 35, 127)])
+def test_exact_pass_matches_plain(dev, R, N, C, gmax):
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    rng = np.random.default_rng(R + N + C)
+    g = rng.integers(0, gmax + 1, (R, N)).astype(np.int8)
+    m = (rng.random((R, N)) < 0.1).astype(np.int8)
+    g[m == 1] = 0
+    W = rng.integers(-127, 128, (N, C)).astype(np.int8)
+    gz8, m8, Wd = (torch.from_numpy(a).to(dev) for a in (g, m, W))
+    before = _kernels.launches['hail_linreg_exact_pass']
+    got = li.exact_pass(gz8, m8, Wd)
+    assert _kernels.launches['hail_linreg_exact_pass'] == before + 1
+    plain = li._exact_pass_plain(gz8, m8, Wd)
+    torch.cuda.synchronize()
+    g64, m64, w64 = (a.astype(np.int64) for a in (g, m, W))
+    oracle = (g64 @ w64, m64 @ w64, m64.sum(1), g64.sum(1), (g64 * g64).sum(1))
+    for a, b, o in zip(got, plain, oracle):
+        assert a.dtype == torch.int32
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.cpu().numpy(), o)
+
+
+def test_exact_pass_rejects_bad_input(dev):
+    from hail_tpu_torch.ops import linreg_i8 as li
+    g = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match='shape'):
+        li.exact_pass(g, g, torch.zeros((9, 7), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match='contiguous'):
+        li.exact_pass(torch.zeros((8, 4), dtype=torch.int8, device=dev).T, g,
+                      torch.zeros((8, 7), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        li.exact_pass(g, g.cpu(), torch.zeros((8, 7), dtype=torch.int8,
+                                              device=dev))
+
+
+@pytest.mark.parametrize('m,n', [(1, 1), (600, 130), (129, 65), (1000, 257)])
+def test_ibs_matches_plain(dev, m, n):
+    from hail_tpu_torch.ops import _kernels, ibs
+    rng = np.random.default_rng(m * n)
+    nalt = rng.integers(0, 3, (m, n))
+    called = rng.random((m, n)) >= 0.1
+    het, hom_ref, hom_var = (called & (nalt == c) for c in (1, 0, 2))
+    ind = [torch.from_numpy(a).to(dev) for a in (het, hom_ref, hom_var, called)]
+    before = _kernels.launches['hail_ibs_counts']
+    got = ibs.ibs_counts(*ind)
+    assert _kernels.launches['hail_ibs_counts'] == before + 1
+    plain = ibs._ibs_plain(*ind)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert a.dtype == torch.int32 and a.shape == (n, n)
+        assert torch.equal(a, b)
+
+
+def test_exact_core_on_the_card_matches_cpu(dev):
+    """The f64 epilogue on the card against the same epilogue on the CPU."""
+    from hail_tpu_torch.ops import linreg_i8 as li
+    rng = np.random.default_rng(11)
+    R, N, k, P = 50, 700, 3, 2
+    g = rng.integers(0, 3, (R, N)).astype(np.int8)
+    m = (rng.random((R, N)) < 0.05).astype(np.int8)
+    g[m == 1] = 0
+    m[7] = 1
+    g[7] = 0                                     # all-missing row -> NaN
+    cov = np.concatenate([np.ones((N, 1)), rng.normal(size=(N, k - 1))], 1)
+    Q, _ = np.linalg.qr(cov)
+    Ys = rng.normal(size=(N, P))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    out = {}
+    for d in (dev, torch.device('cpu')):
+        consts = li.exact_consts(Q, Ys, Qty, yyp, N - k - 1, d)
+        out[d.type] = li.linreg_block_gz_exact_packed(
+            torch.from_numpy(g).to(d), torch.from_numpy(m).to(d), *consts,
+            k).cpu().numpy()
+    assert np.array_equal(np.isnan(out['cuda']), np.isnan(out['cpu']))
+    np.testing.assert_allclose(out['cuda'], out['cpu'], rtol=1e-10,
+                               equal_nan=True)

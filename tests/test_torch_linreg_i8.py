@@ -1,0 +1,158 @@
+"""The port's exact linreg ops (hail_tpu_torch/ops/linreg_i8.py) against
+hail_tpu's on the same numpy inputs, on the CPU, where the port's wrappers
+run their kernels' plain torch versions.
+
+Tolerances: integer results (2-bit codes, unpacked pairs, digit planes,
+int32 partials) are bit-equal; f64 outputs agree at rtol 1e-10 (the same
+sums, recombined in another order), with NaN at the same positions.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hail_tpu.genetics.call import pack_diploid
+from hail_tpu.ops import linreg_i8 as ref
+from hail_tpu_torch import interop
+from hail_tpu_torch.ops import linreg_i8 as port
+
+RTOL = 1e-10
+
+
+def _calls(R, N, miss_rate, seed):
+    rng = np.random.default_rng(seed)
+    nalt = rng.integers(0, 3, (R, N)).astype(np.int32)
+    miss = rng.random((R, N)) < miss_rate
+    gt = pack_diploid((nalt == 2).astype(np.int32), (nalt >= 1).astype(np.int32))
+    return nalt, miss, gt
+
+
+def _ols_setup(N, k, P, seed):
+    rng = np.random.default_rng(seed)
+    cov = np.concatenate([np.ones((N, 1)), rng.normal(size=(N, k - 1))], axis=1)
+    Q, _ = np.linalg.qr(cov)
+    Ys = rng.normal(size=(N, P))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(axis=0) - (Qty * Qty).sum(axis=0)
+    return Q, Ys, Qty, yyp, N - k - 1
+
+
+@pytest.mark.parametrize('N', [16, 1003, 4, 7])
+@pytest.mark.parametrize('with_missing', [True, False])
+def test_pack_unpack_bit_equal(N, with_missing):
+    nalt, miss, gt = _calls(33, N, 0.07, seed=N)
+    m = miss if with_missing else None
+    u8 = port.pack_gt_2bit(gt, m)
+    np.testing.assert_array_equal(u8, ref.pack_gt_2bit(gt, m))
+    gz8, m8 = port.unpack_gt_2bit(torch.from_numpy(u8), N)
+    gz8_r, m8_r = ref.unpack_gt_2bit(jnp.asarray(u8), N)
+    assert gz8.dtype == m8.dtype == torch.int8
+    np.testing.assert_array_equal(gz8.numpy(), np.asarray(gz8_r))
+    np.testing.assert_array_equal(m8.numpy(), np.asarray(m8_r))
+    want_m = miss if with_missing else np.zeros_like(miss)
+    np.testing.assert_array_equal(m8.numpy(), want_m.astype(np.int8))
+    np.testing.assert_array_equal(gz8.numpy(), np.where(want_m, 0, nalt))
+
+
+@pytest.mark.parametrize('k,P', [(1, 1), (4, 1), (3, 2), (5, 4)])
+def test_digit_planes_bit_equal(k, P):
+    Q, Ys, _, _, _ = _ols_setup(301, k, P, seed=k * 10 + P)
+    W = np.concatenate([Q, Ys], axis=1)
+    W[:, 0] *= 1e-3                               # columns of other scales
+    Wd, sc = port._digit_planes(W)
+    Wd_r, sc_r = ref._digit_planes(W)
+    assert Wd.dtype == np.int8 and Wd.shape == (301, 7 * (k + P))
+    np.testing.assert_array_equal(Wd, Wd_r)
+    np.testing.assert_array_equal(sc, sc_r)
+
+
+def _reference_pair_and_consts(R, N, k, P, seed, all_missing_row=None):
+    nalt, miss, gt = _calls(R, N, 0.1, seed)
+    if all_missing_row is not None:
+        miss[all_missing_row] = True
+    gz8_r, m8_r = ref.unpack_gt_2bit(jnp.asarray(ref.pack_gt_2bit(gt, miss)), N)
+    Q, Ys, Qty, yyp, dof = _ols_setup(N, k, P, seed + 1)
+    Wd, sc = ref._digit_planes(np.concatenate([Q, Ys], axis=1))
+    return (gz8_r, m8_r), (Wd, sc, Qty, yyp, dof)
+
+
+@pytest.mark.parametrize('R,N,k,P', [(40, 257, 3, 2), (64, 300, 4, 1),
+                                     (17, 1000, 2, 6)])
+def test_exact_core_matches_reference(R, N, k, P):
+    (gz8_r, m8_r), (Wd, sc, Qty, yyp, dof) = _reference_pair_and_consts(
+        R, N, k, P, seed=R, all_missing_row=3)
+    want = np.asarray(ref.linreg_block_gz_exact_packed(
+        gz8_r, m8_r, jnp.asarray(Wd), jnp.asarray(sc), jnp.asarray(Qty),
+        jnp.asarray(yyp), jnp.asarray(float(dof)), k))
+    gz8, m8 = interop.entry_pair_from_reference(np.asarray(gz8_r),
+                                                np.asarray(m8_r), 'cpu')
+    consts = interop.consts_from_reference(Wd, sc, Qty, yyp, dof, 'cpu')
+    # the int32 partials against an int64 numpy oracle
+    GWd, MWd, nmiss, s, ss = port.exact_pass(gz8, m8, consts[0])
+    g64, m64, w64 = (np.asarray(a, np.int64) for a in (gz8_r, m8_r, Wd))
+    np.testing.assert_array_equal(GWd.numpy(), g64 @ w64)
+    np.testing.assert_array_equal(MWd.numpy(), m64 @ w64)
+    np.testing.assert_array_equal(nmiss.numpy(), m64.sum(1))
+    np.testing.assert_array_equal(s.numpy(), g64.sum(1))
+    np.testing.assert_array_equal(ss.numpy(), (g64 * g64).sum(1))
+    assert GWd.dtype == torch.int32
+    got = port.linreg_block_gz_exact_packed(gz8, m8, *consts, k).numpy()
+    assert got.shape == want.shape == (R, 1 + 4 * P)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got[3, 1 + P:]).all() and np.isfinite(got[:3]).all()
+    np.testing.assert_allclose(got, want, rtol=RTOL, equal_nan=True)
+
+
+def test_block_i8_exact_packed_matches_reference():
+    rng = np.random.default_rng(5)
+    R, N, k, P = 30, 222, 3, 1
+    G8 = rng.integers(0, 5, (R, N)).astype(np.int8)   # integer x beyond GT
+    G8[rng.random((R, N)) < 0.1] = -1
+    Q, Ys, Qty, yyp, dof = _ols_setup(N, k, P, seed=6)
+    Wd, sc = ref._digit_planes(np.concatenate([Q, Ys], axis=1))
+    want = np.asarray(ref._linreg_block_i8_exact_packed(
+        jnp.asarray(G8), jnp.asarray(Wd), jnp.asarray(sc), jnp.asarray(Qty),
+        jnp.asarray(yyp), jnp.asarray(float(dof)), k))
+    consts = interop.consts_from_reference(Wd, sc, Qty, yyp, dof, 'cpu')
+    got = port._linreg_block_i8_exact_packed(torch.from_numpy(G8), *consts,
+                                             k).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+def test_linreg_stats_i8_exact_matches_f64_formula():
+    """Mirrors tests/test_linreg_i8.py::test_exact_i8_kernel_matches_f64_path
+    with the port: the exact int8 path reproduces the f64 formula."""
+    from hail_tpu_torch.ops.regression import linreg_stats
+    rng = np.random.default_rng(7)
+    R, N, k, P = 40, 257, 3, 2
+    G8 = rng.integers(0, 3, (R, N)).astype(np.int8)
+    G8[rng.random((R, N)) < 0.15] = -1
+    G8[5] = -1                                   # all-missing row -> NaN
+    Q, Y, Qty, yyp, d = _ols_setup(N, k, P, seed=8)
+    want = linreg_stats(np.where(G8 < 0, 0, G8).astype(np.float64), G8 < 0,
+                        None, Q, Y, Qty, yyp, d, 'cpu')
+    got = port.linreg_stats_i8_exact(torch.from_numpy(G8), Q, Y, Qty, yyp, d)
+    for f in ('sum_x', 'y_transpose_x', 'beta', 'standard_error', 't_stat',
+              'p_value'):
+        a, b = want[f], got[f]
+        assert np.array_equal(np.isnan(a), np.isnan(b)), f
+        ok = np.isfinite(a)
+        np.testing.assert_allclose(b[ok], a[ok], rtol=RTOL, err_msg=f)
+
+
+def test_finish_stats_packed_matches_reference():
+    rng = np.random.default_rng(9)
+    arr = rng.normal(size=(12, 1 + 4 * 3))
+    a = port._finish_stats_packed(torch.from_numpy(arr), 3, 50)
+    b = ref._finish_stats_packed(arr, 3, 50)
+    for f in b:
+        np.testing.assert_array_equal(a[f], b[f])
+
+
+def test_exact_pass_rejects_too_many_samples():
+    # N above the int32 accumulator bound; R = 0 rows allocate nothing
+    gz8 = torch.empty((0, port._MAX_EXACT_N + 1), dtype=torch.int8)
+    with pytest.raises(ValueError, match='int32 accumulator'):
+        port.exact_pass(gz8, gz8, torch.empty((port._MAX_EXACT_N + 1, 7),
+                                              dtype=torch.int8))

@@ -1,0 +1,37 @@
+"""hail_tpu_torch imports and runs with jax blocked, and loads nothing of
+hail_tpu. In a subprocess: this test process has jax loaded already
+(tests/conftest.py imports it)."""
+
+import os
+import subprocess
+import sys
+
+_PROGRAM = r'''
+import sys
+sys.modules['jax'] = None          # any `import jax` now raises ImportError
+import numpy as np
+import hail_tpu_torch as hl
+hl.init(device='cpu', global_seed=0, quiet=True)
+mt = hl.balding_nichols_model(2, 40, 30, n_partitions=2)
+mt = mt.annotate_cols(y=hl.rand_unif(0, 1, seed=1))
+res = hl.linear_regression_rows(y=mt.y, x=mt.GT.n_alt_alleles(),
+                                covariates=[1.0])
+rows = res.collect()
+assert len(rows) == 30 and any(np.isfinite(r.beta) for r in rows)
+ibd = hl.identity_by_descent(mt).collect()
+assert len(ibd) == 40 * 39 // 2
+hl.stop()
+loaded = [m for m, mod in sys.modules.items() if mod is not None and (
+    m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'
+    or m.startswith('hail_tpu.'))]
+assert not loaded, loaded
+print('OK')
+'''
+
+
+def test_port_runs_without_jax_or_reference():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, '-c', _PROGRAM], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.strip().endswith('OK')

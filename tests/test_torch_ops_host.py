@@ -1,0 +1,194 @@
+"""The port's device cache (ops/devcache.py) and batched device-to-host
+fetch groups (ops/fetchgroup.py), on CPU tensors."""
+
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from hail_tpu_torch.ir import columns as C
+from hail_tpu_torch import types as ht
+from hail_tpu_torch.ops import devcache, fetchgroup
+
+
+class Anchor:
+    pass
+
+
+@pytest.fixture(autouse=True)
+def _fresh_cache():
+    devcache.clear()
+    yield
+    devcache.clear()
+
+
+def test_hit_and_miss_by_fingerprint():
+    a = Anchor()
+    calls = []
+
+    def build():
+        calls.append(1)
+        return torch.zeros(10)
+
+    b1 = devcache.get(a, ('x',), build)
+    b2 = devcache.get(a, ('x',), build)
+    assert b2 is b1 and len(calls) == 1
+    devcache.get(a, ('y',), build)
+    assert len(calls) == 2
+    st = devcache.stats()
+    assert (st['hits'], st['misses'], st['entries']) == (1, 2, 2)
+    assert st['bytes'] == 2 * 10 * 4
+
+
+def test_anchor_death_evicts():
+    a = Anchor()
+    devcache.get(a, ('x',), lambda: (torch.zeros(100, dtype=torch.int8),
+                                     torch.ones(100, dtype=torch.int8)))
+    assert devcache.stats()['entries'] == 1
+    assert devcache.stats()['bytes'] == 200
+    del a
+    gc.collect()
+    assert devcache.stats()['entries'] == 0
+    assert devcache.stats()['bytes'] == 0
+
+
+def test_lru_budget_eviction(monkeypatch):
+    monkeypatch.setenv('HAIL_TPU_DEVICE_CACHE_BYTES', '4000')
+    anchors = [Anchor() for _ in range(4)]
+    for i, a in enumerate(anchors):
+        devcache.get(a, (i,), lambda: torch.zeros(300, dtype=torch.float64))
+    st = devcache.stats()
+    assert st['bytes'] <= 4000 and st['entries'] == 1
+    # the newest entry survived: a hit, no rebuild
+    calls = []
+    devcache.get(anchors[3], (3,), lambda: calls.append(1))
+    assert not calls
+    # the oldest was evicted: a rebuild
+    devcache.get(anchors[0], (0,), lambda: calls.append(1))
+    assert calls == [1]
+
+
+def test_zero_budget_disables(monkeypatch):
+    monkeypatch.setenv('HAIL_TPU_DEVICE_CACHE_BYTES', '0')
+    a = Anchor()
+    calls = []
+
+    def build():
+        calls.append(1)
+        return torch.zeros(5)
+
+    devcache.get(a, ('x',), build)
+    devcache.get(a, ('x',), build)
+    assert len(calls) == 2 and devcache.stats()['entries'] == 0
+
+
+def test_unweakrefable_anchor_falls_through():
+    out = devcache.get(42, ('x',), lambda: torch.zeros(3))
+    assert out.shape == (3,)
+    assert devcache.stats()['entries'] == 0
+
+
+def test_default_cap_sized_for_the_card(monkeypatch):
+    monkeypatch.delenv('HAIL_TPU_DEVICE_CACHE_BYTES', raising=False)
+    import hail_tpu_torch as hl
+    hl.init(device='cpu', quiet=True)
+    try:
+        assert devcache.stats()['cap'] == 16 * 1024 ** 3
+    finally:
+        hl.stop()
+    assert devcache._cap() == devcache._DEFAULT_CAP == 16 * 1024 ** 3
+
+
+def test_fetchgroup_one_flush_per_group(monkeypatch):
+    cats = []
+    real_cat = torch.cat
+
+    def counting_cat(ts, dim=0):
+        cats.append(len(ts))
+        return real_cat(ts, dim=dim)
+
+    monkeypatch.setattr(torch, 'cat', counting_cat)
+    a = torch.arange(12, dtype=torch.float64).reshape(4, 3)
+    b = torch.arange(6, dtype=torch.float64).reshape(2, 3) + 100
+    c = torch.arange(4, dtype=torch.float32)            # another dtype group
+    d = torch.arange(5, dtype=torch.float32) + 7
+    s1, s2, s3, s4 = (fetchgroup.defer(t) for t in (a, b, c, d))
+    assert fetchgroup.pending_count() == 4
+    fetchgroup.flush()
+    assert fetchgroup.pending_count() == 0
+    assert sorted(cats) == [2, 2]                       # one cat per group
+    np.testing.assert_array_equal(s1.get(), np.arange(12.).reshape(4, 3))
+    np.testing.assert_array_equal(s2.get(), np.arange(6.).reshape(2, 3) + 100)
+    np.testing.assert_array_equal(s3.get(), np.arange(4, dtype=np.float32))
+    np.testing.assert_array_equal(s4.get(), np.arange(5, dtype=np.float32) + 7)
+    assert all(s.dev is None for s in (s1, s2, s3, s4))
+
+
+def test_slot_get_triggers_flush():
+    s = fetchgroup.defer(torch.ones((3, 2)))
+    np.testing.assert_array_equal(s.get(), np.ones((3, 2)))
+    assert fetchgroup.pending_count() == 0
+
+
+def test_deferred_primitive_column():
+    slot = fetchgroup.defer(torch.arange(10.).reshape(5, 2))
+    col = C.DeferredPrimitiveColumn(
+        ht.tfloat64, 5, slot, lambda a: (a[:, 1], None))
+    assert isinstance(col, C.PrimitiveColumn)
+    np.testing.assert_array_equal(col.values, np.arange(10.).reshape(5, 2)[:, 1])
+    assert col.missing is None
+
+
+def test_lazy_transfer_keeps_live_slots_fetchable():
+    held = fetchgroup.defer(torch.arange(6, dtype=torch.float64) * 2)
+    dropped = fetchgroup.defer(torch.ones(4))
+    with fetchgroup.lazy_transfer():
+        fetchgroup.stage_end()
+    assert held.host is None            # waited for, not transferred
+    del dropped
+    gc.collect()
+    assert fetchgroup.pending_count() == 1
+    np.testing.assert_array_equal(held.get(), np.arange(6.) * 2)
+    assert fetchgroup.pending_count() == 0
+
+
+def test_stage_end_flushes_outside_lazy_transfer():
+    s = fetchgroup.defer(torch.arange(3.))
+    fetchgroup.stage_end()
+    assert s.host is not None and s.dev is None
+    np.testing.assert_array_equal(s.get(), np.arange(3.))
+
+
+def test_init_device_selection():
+    import hail_tpu_torch as hl
+    hl.init(device='cpu', quiet=True)
+    try:
+        assert hl.current_device() == torch.device('cpu')
+        info = hl.debug_info()
+        assert info['device'] == 'cpu' and info['torch_version']
+        with pytest.raises(ValueError, match='unsupported device'):
+            hl.init(device='meta', quiet=True)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match='is_available'):
+                hl.init(device='cuda', quiet=True)
+    finally:
+        hl.stop()
+
+
+def test_exact_consts_cache_keys_on_shape():
+    """Equal bytes in other shapes are other constants (the reference keys
+    on the bytes alone)."""
+    from hail_tpu_torch.methods.statgen import _exact_consts_cached
+    rng = np.random.default_rng(0)
+    Q = np.linalg.qr(rng.normal(size=(12, 2)))[0]
+    Ys = rng.normal(size=(12, 2))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    a = _exact_consts_cached(Q, Ys, Qty, yyp, 9, 'cpu')
+    assert _exact_consts_cached(Q, Ys, Qty, yyp, 9, 'cpu') is a
+    # the very same bytes, other shapes
+    b = _exact_consts_cached(Q.reshape(6, 4), Ys.reshape(6, 4),
+                             Qty.reshape(1, 4), yyp, 9, 'cpu')
+    assert b is not a
+    assert tuple(a[0].shape) == (12, 7 * 4) and tuple(b[0].shape) == (6, 7 * 8)
