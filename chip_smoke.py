@@ -6,10 +6,15 @@ Builds the hand-written CUDA kernels from hail_tpu_torch/csrc, holds each
 against its plain torch version on the card at the shapes of the main path,
 then drives the public entry points at the benchmark's size:
 `hl.linear_regression_rows` (GWAS, 10,000 samples x 4 x 8,192 variants,
-2% missing, 4 covariates) and `hl.identity_by_descent` (1,000 samples x
-16,384 variants). It fails (non-zero exit, no result line) when there is no
-card, when a kernel does not build, launch or agree, when the main path did
-not launch every kernel, or when the results disagree with numpy.
+2% missing, 4 covariates), the f32 int8 path `linreg_stats_i8` over the
+same 32,768 variants, `hl.logistic_regression_rows` (wald over all 32,768
+variants from the GWAS's cached entry pair; lrt, score and firth over one
+partition) and `hl.poisson_regression_rows` (wald, one partition), and
+`hl.identity_by_descent` (1,000 samples x 16,384 variants). It fails
+(non-zero exit, no result line) when there is no card, when a kernel does
+not build, launch or agree, when the main path did not launch every
+kernel, or when the results disagree with numpy, the exact path or the
+host GLM fits (stats/glmfit).
 
 The last lines of stdout: the method rates as JSON, the kernels as JSON,
 the card's name and power limit as nvidia-smi reports them, and
@@ -35,6 +40,8 @@ IBD_SAMPLES = 1_000
 IBD_VARIANTS = 16_384
 MISSING = 0.02
 CHECK_ROWS = 256
+GLM_CHECK_ROWS = 32
+GLM_MAXIT, GLM_TOL = 25, 1e-8
 
 
 def log(msg: str) -> None:
@@ -75,13 +82,30 @@ def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno):
     if with_pheno:
         for name in ['pheno'] + [f'c{i}' for i in range(K - 1)]:
             cols_np[name] = rng.normal(size=n_samples)
-            col_fields[name] = PrimitiveColumn(ht.tfloat64, cols_np[name])
+        # GLM phenotypes as tests/test_glm_device.py makes them: a binary
+        # and a count trait of the covariates plus the mean genotype
+        eta = (covariates(cols_np) @ (rng.normal(size=K) * 0.4)
+               + 0.15 * np.mean([np.where(m, 0, g).mean(axis=0)
+                                 for g, m in zip(nalts, misses)], axis=0))
+        cols_np['yb'] = (rng.random(n_samples)
+                         < 1 / (1 + np.exp(-eta))).astype(np.float64)
+        cols_np['yc'] = rng.poisson(np.exp(np.clip(eta, -3, 2))).astype(
+            np.float64)
+        for name, v in cols_np.items():
+            col_fields[name] = PrimitiveColumn(ht.tfloat64, v)
             col_t[name] = ht.tfloat64
     row_t = ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr))
     mt = MatrixTable(MatrixStage.from_batches(
         Batch({}, 1), Batch(col_fields, n_samples), ['locus', 'alleles'], ['s'],
         row_t, ht.tstruct(**col_t), ht.tstruct(GT=ht.tcall), mbs))
     return mt, nalts, misses, cols_np
+
+
+def covariates(cols_np):
+    """The covariate matrix [1, c0, c1, c2] (n, K)."""
+    n = cols_np['pheno'].shape[0]
+    return np.stack([np.ones(n)] + [cols_np[f'c{i}'] for i in range(K - 1)],
+                    axis=1)
 
 
 def timed_ms(fn, reps: int = 10) -> float:
@@ -112,10 +136,8 @@ def exact_setup(cols_np):
     """The exact path's host operands for y = pheno, covariates
     [1, c0, c1, c2], as linear_regression_rows makes them."""
     n = cols_np['pheno'].shape[0]
-    cov = np.stack([np.ones(n)] + [cols_np[f'c{i}'] for i in range(K - 1)],
-                   axis=1)
     Ys = cols_np['pheno'][:, None]
-    Q, _ = np.linalg.qr(cov)
+    Q, _ = np.linalg.qr(covariates(cols_np))
     Qty = Q.T @ Ys
     yyp = (Ys * Ys).sum(axis=0) - (Qty * Qty).sum(axis=0)
     return Q, Ys, Qty, yyp, n - K - 1
@@ -179,6 +201,36 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
                         replaces='hail_tpu/ops/linreg_i8.py:246',
                         max_abs_err=float(err3), ms=ms, plain_ms=plain_ms))
 
+    # K1 on that partition as int8 G (-1 = missing) against W = [Q | Ys]
+    # in f32 (KP = 5)
+    G8 = torch.from_numpy(g8_of(nalts[0], misses[0])).to(dev)
+    W = torch.from_numpy(np.concatenate([Q, Ys], axis=1).astype(np.float32)
+                         ).to(dev)
+    sums_k = li.linreg_i8_sums(G8, W)
+    sums_p = li._sums_ref(G8, W)
+    torch.cuda.synchronize()
+    if not torch.equal(sums_k[2], sums_p[2]):
+        raise AssertionError('K1 sums: the row sums differ from plain')
+    err1, notes = 0.0, []
+    for name, a, b, (exact, l2) in zip(('GW', 'MW'), sums_k[:2], sums_p[:2],
+                                       f32_sum_oracle(G8, W)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        rel_k = f32_sum_check(a, exact, l2, 1e-5, f'K1 {name} vs f64')
+        rel_p = f32_sum_check(b, exact, l2, 1e-4, f'plain {name} vs f64')
+        f32_sum_check(a, b, l2, 1e-4, f'K1 {name} vs plain', atol=2e-5)
+        err1 = max(err1, float(np.abs(a - b).max()))
+        notes.append(f'{name} rel err K1 {rel_k:.3g}, plain {rel_p:.3g}')
+    ms, plain_ms = compare_times(lambda: li.linreg_i8_sums(G8, W),
+                                 lambda: li._sums_ref(G8, W))
+    log(f'K1 linreg_i8_sums G8 {tuple(G8.shape)} x W {tuple(W.shape)}: row '
+        f'sums bit-equal; against the f64 product {"; ".join(notes)}; K1 vs '
+        f'plain max abs diff {err1:.3g}; kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms')
+    records.append(dict(name='linreg_i8_sums', route='cuda',
+                        source='hail_tpu_torch/csrc/linreg_f32.cu',
+                        replaces='hail_tpu/ops/linreg_i8.py:45',
+                        max_abs_err=err1, ms=ms, plain_ms=plain_ms))
+
     # K2 at the IBD shape: 16,384 variants x 1,000 samples
     het, hom_ref, hom_var, called = (torch.from_numpy(a).to(dev)
                                      for a in ibd_ind)
@@ -201,12 +253,47 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
     return records
 
 
+def f32_sum_oracle(G8, W):
+    """For K1's GW and MW: the f64 product of the same f32 operands and,
+    per element, the l2 norm of its terms, the scale of the rounding error
+    of an f32 sum of them: [(exact, l2) for Gz, M]."""
+    miss = G8 < 0
+    W64 = W.double()
+    out = []
+    for A in (torch.where(miss, 0, G8).double(), miss.double()):
+        out.append(((A @ W64).cpu().numpy(),
+                    torch.sqrt((A * A) @ (W64 * W64)).cpu().numpy()))
+    return out
+
+
+def f32_sum_check(x, ref, l2, rtol, what, atol=1e-5):
+    """f32 sums of f32 products in some order, held to `ref`:
+    |x - ref| <= rtol |ref| + atol l2. The atol term is the random-walk
+    scale of f32 rounding (a few eps per add, over the l2 norm of the
+    terms); the rtol term bounds drift that grows with the sum, as in a
+    long sequential sum of terms of one sign. Returns the largest
+    |x - ref| / |ref|."""
+    bad = np.abs(x - ref) > rtol * np.abs(ref) + atol * l2
+    if bad.any():
+        i = np.argwhere(bad)[0]
+        raise AssertionError(f'{what}: {int(bad.sum())} elements beyond '
+                             f'rtol {rtol} + {atol} l2, first at {tuple(i)}: '
+                             f'{x[tuple(i)]} vs {ref[tuple(i)]}')
+    with np.errstate(divide='ignore', invalid='ignore'):
+        rel = np.abs(x - ref) / np.abs(ref)
+    return float(np.nanmax(np.where(np.isfinite(rel), rel, 0.0)))
+
+
+def g8_of(nalt, miss):
+    """int8 storage of the f32 path: n_alt, -1 where missing."""
+    return np.where(miss, -1, nalt).astype(np.int8)
+
+
 def numpy_ols(nalt, miss, cols_np):
     """Independent f64 OLS of pheno ~ [1, c0, c1, c2, x] per row, x mean-
     imputed: (beta, se, t) of x."""
     n = cols_np['pheno'].shape[0]
-    cov = np.stack([np.ones(n)] + [cols_np[f'c{i}'] for i in range(K - 1)],
-                   axis=1)
+    cov = covariates(cols_np)
     y = cols_np['pheno']
     out = np.empty((nalt.shape[0], 3))
     for r in range(nalt.shape[0]):
@@ -273,6 +360,181 @@ def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
     return dict(cold=cold, warm=warm, host_materialized=host)
 
 
+def phase_linreg_f32(dev, nalts, misses, cols_np):
+    """`linreg_stats_i8` (K1's path) over all partitions at full width,
+    held to the exact path on the same G8 at the reference's f32 bar
+    (rtol 2e-4, atol 1e-6). Returns its variants/s."""
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    G8 = torch.from_numpy(np.concatenate(
+        [g8_of(g, m) for g, m in zip(nalts, misses)])).to(dev)
+    Q, Ys, Qty, yyp, dof = exact_setup(cols_np)
+    before = _kernels.launches['hail_linreg_i8_sums']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = li.linreg_stats_i8(G8, Q, Ys, Qty, yyp, dof)
+    rate = G8.shape[0] / (time.perf_counter() - t0)
+    if _kernels.launches['hail_linreg_i8_sums'] == before:
+        raise AssertionError('linreg_stats_i8 did not launch K1')
+    exact = li.linreg_stats_i8_exact(G8, Q, Ys, Qty, yyp, dof)
+    for f in ('beta', 'p_value'):
+        if got[f].shape != (G8.shape[0], 1) or not np.isfinite(got[f]).all():
+            raise AssertionError(f'f32 {f}: shape {got[f].shape} or '
+                                 f'non-finite values')
+        np.testing.assert_allclose(got[f], exact[f], rtol=2e-4, atol=1e-6,
+                                   err_msg=f'f32 {f} vs the exact path')
+    log(f'linreg_stats_i8 (K1) {G8.shape[0]} variants x {G8.shape[1]} '
+        f'samples: {rate:.1f} v/s; beta and p within rtol 2e-4, atol 1e-6 '
+        f'of the exact path')
+    return rate
+
+
+def _glm_host_rows(method, test, cov, y, x_rows):
+    """stats/glmfit per row, as the host route of the method computes it:
+    the per-row result dict of `test` and its fit."""
+    from hail_tpu_torch.stats import glmfit
+    if method == 'logistic':
+        null = glmfit.logreg_fit(cov, y, None, GLM_MAXIT, GLM_TOL)
+    else:
+        n, k = cov.shape
+        b0 = np.concatenate([[np.log(y.sum() / n)], np.zeros(k - 1)])
+        mu0 = np.exp(cov @ b0)
+        null = glmfit.poisson_fit(cov, y, b0, mu0, cov.T @ (y - mu0),
+                                  (mu0 * cov.T) @ cov, GLM_MAXIT, GLM_TOL)
+    out = []
+    for x in x_rows:
+        X = np.hstack([cov, x[:, None]])
+        if test == 'score':
+            out.append(glmfit.logistic_score_test(X, y, null))
+        elif test == 'firth':
+            out.append(glmfit.firth_test(null, X, y, 100, GLM_TOL))
+        elif method == 'logistic':
+            fit = glmfit.logreg_fit(X, y, null, GLM_MAXIT, GLM_TOL)
+            out.append(glmfit.wald_test(X, fit) if test == 'wald'
+                       else glmfit.lrt_test(X, null, fit))
+        else:
+            b = np.concatenate([null['b'], [0.0]])
+            mu = 1.0 / (1.0 + np.exp(-(X @ b)))    # the reference's quirk
+            score = np.concatenate([null['score'], [x @ (y - mu)]])
+            f01 = ((cov.T * mu) @ x).reshape(-1, 1)
+            fisher = np.block([[null['fisher'], f01],
+                               [f01.T, np.array([[(mu * x) @ x]])]])
+            fit = glmfit.poisson_fit(X, y, b, mu, score, fisher, GLM_MAXIT,
+                                     GLM_TOL)
+            out.append(glmfit.wald_test(X, fit))
+    return out
+
+
+def _glm_check(batch, host, test, n_rows):
+    """The first rows of the method's first partition against the host
+    fits: iteration counts and flags equal, numbers within rtol 1e-9
+    (tests/test_glm_device.py)."""
+    rows = batch.slice(0, n_rows).to_pylist()
+    nums = {'wald': ('beta', 'standard_error', 'z_stat', 'p_value'),
+            'lrt': ('beta', 'chi_sq_stat', 'p_value'),
+            'score': ('chi_sq_stat', 'p_value'),
+            'firth': ('beta', 'chi_sq_stat', 'p_value')}[test]
+    for r, (got, want) in enumerate(zip(rows, host)):
+        fit = want.get('fit')
+        if fit is not None:
+            for f in ('n_iterations', 'converged', 'exploded'):
+                if got.fit[f] != fit[f]:
+                    raise AssertionError(f'{test} row {r}: fit.{f} '
+                                         f'{got.fit[f]} != host {fit[f]}')
+        for f in nums:
+            a, b = got[f], want[f]
+            if (a is None) != (b is None):
+                raise AssertionError(f'{test} row {r}: {f} {a} vs host {b}')
+            if b is not None:
+                np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-300,
+                                           err_msg=f'{test} row {r}: {f}')
+    if len(rows) != n_rows:
+        raise AssertionError(f'{test}: {len(rows)} rows checked')
+
+
+def _timing_device_tier(glm_device, spent):
+    """Wrap the device tier's two entry functions so that each call
+    appends its seconds to `spent` (from the partitions' threads:
+    list.append is atomic); each ends in one device-to-host copy, so its
+    wall time covers its device work. Returns the undo."""
+    saved = {}
+    for name in ('logistic_rows_device', 'poisson_rows_device'):
+        fn = saved[name] = getattr(glm_device, name)
+
+        def timed(*a, _fn=fn, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spent.append(time.perf_counter() - t0)
+        setattr(glm_device, name, timed)
+    return lambda: [setattr(glm_device, n, f) for n, f in saved.items()]
+
+
+def phase_glm(hl, mt, n_variants, nalts, misses, cols_np):
+    """The GLM device tier over the GWAS's cached entry pair: logistic wald
+    at full width, lrt/score/firth and poisson wald over one partition;
+    each holds its first rows to stats/glmfit. Returns variants/s and, for
+    each call, its seconds and the seconds of its device-tier calls
+    summed over partitions (which run in parallel threads)."""
+    from hail_tpu_torch.ops import glm_device
+    spent = []
+    undo = _timing_device_tier(glm_device, spent)
+    try:
+        return _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent)
+    finally:
+        undo()
+
+
+def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent):
+    from hail_tpu_torch.ops import _kernels, devcache
+    cov = covariates(cols_np)
+    x = np.where(misses[0], 0, nalts[0])[:GLM_CHECK_ROWS].astype(np.float64)
+    mrow = misses[0][:GLM_CHECK_ROWS]
+    x = np.where(mrow, (x.sum(axis=1) / (~mrow).sum(axis=1))[:, None], x)
+    one = mt._filter_partitions([0])
+    k4 = _kernels.launches['hail_unpack_gt_2bit']
+    rates, tier = {}, {}
+    for method, test, src, n in (
+            ('logistic', 'wald', mt, n_variants),
+            ('logistic', 'lrt', one, nalts[0].shape[0]),
+            ('logistic', 'score', one, nalts[0].shape[0]),
+            ('logistic', 'firth', one, nalts[0].shape[0]),
+            ('poisson', 'wald', one, nalts[0].shape[0])):
+        covs = [1.0] + [getattr(src, f'c{i}') for i in range(K - 1)]
+        fn = (hl.logistic_regression_rows if method == 'logistic'
+              else hl.poisson_regression_rows)
+        y = src.yb if method == 'logistic' else src.yc
+        hits = devcache.hits
+        spent.clear()
+        t0 = time.perf_counter()
+        res = fn(test, y=y, x=src.GT.n_alt_alleles(), covariates=covs)
+        batches = res._stage.collect_batches()
+        total = time.perf_counter() - t0
+        rate = n / total
+        got = np.concatenate([np.asarray(b.columns['p_value'].values,
+                                         np.float64) for b in batches])
+        if got.shape != (n,) or not np.isfinite(got).any():
+            raise AssertionError(f'{method} {test}: p-values of shape '
+                                 f'{got.shape}, none finite')
+        if devcache.hits - hits != len(batches):
+            raise AssertionError(f'{method} {test} missed devcache: '
+                                 f'{devcache.stats()}')
+        yv = cols_np['yb' if method == 'logistic' else 'yc']
+        _glm_check(batches[0], _glm_host_rows(method, test, cov, yv, x),
+                   test, GLM_CHECK_ROWS)
+        rates[f'{method}_{test}'] = rate
+        tier[f'{method}_{test}'] = dict(total_s=total,
+                                        device_tier_s=sum(spent))
+        log(f'{method}_regression_rows {test} {n} variants x {cov.shape[0]} '
+            f'samples: {rate:.1f} v/s ({total:.3f} s; device-tier calls '
+            f'{sum(spent):.3f} s summed over {len(spent)} partitions); '
+            f'{GLM_CHECK_ROWS} rows match '
+            f'stats/glmfit (iterations and flags equal, rtol 1e-9)')
+    if _kernels.launches['hail_unpack_gt_2bit'] != k4:
+        raise AssertionError('the GLM calls decoded GT again (K4 launched)')
+    return rates, tier
+
+
 def ibd_method(hl, mt):
     """hl.identity_by_descent at 1,000 samples x 16,384 variants: the pair
     rows and the seconds of the call."""
@@ -331,6 +593,8 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         f'(nvcc for sm_90a from hail_tpu_torch/csrc)')
 
     hl.init(device=str(dev), global_seed=0, quiet=True)
+    # no partition retries: a failure in any partition fails the run
+    hl._set_flags(max_partition_attempts='1')
     import scipy.stats  # noqa: F401  (set-up: the p-values import it once)
     rng = np.random.default_rng(SEED)
     mt, nalts, misses, cols_np = build_mt(hl, rng, n_samples, block_r,
@@ -344,11 +608,14 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     # the main path: only the method calls' own launches count
     _kernels.reset_launch_counts()
     gwas = phase_gwas(hl, mt, n_parts * block_r, nalts, misses, cols_np)
+    gwas['linreg_stats_i8'] = phase_linreg_f32(dev, nalts, misses, cols_np)
+    glm, glm_s = phase_glm(hl, mt, n_parts * block_r, nalts, misses, cols_np)
     ibd_rows, ibd_total = ibd_method(hl, mt_ibd)
     counts = dict(_kernels.launches)
     ibd = ibd_check(ibd_rows, ibd_total, mt_ibd, dev)
     names = {'unpack_gt_2bit': 'hail_unpack_gt_2bit',
              'linreg_exact_pass': 'hail_linreg_exact_pass',
+             'linreg_i8_sums': 'hail_linreg_i8_sums',
              'ibs_counts': 'hail_ibs_counts'}
     for rec in records:
         rec['launches'] = counts[names[rec['name']]]
@@ -361,7 +628,7 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     if loaded:
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
-    return records, gwas, ibd
+    return records, gwas, glm, glm_s, ibd
 
 
 def main() -> int:
@@ -375,10 +642,12 @@ def main() -> int:
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    records, gwas, ibd = run(dev)
+    records, gwas, glm, glm_s, ibd = run(dev)
     order = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
              'ms', 'plain_ms')
-    print(json.dumps({'gwas_variants_per_s': gwas, 'ibd_seconds': ibd}))
+    print(json.dumps({'gwas_variants_per_s': gwas,
+                      'glm_variants_per_s': glm, 'glm_seconds': glm_s,
+                      'ibd_seconds': ibd}))
     print(json.dumps({'kernels': [{k: r[k] for k in order} for r in records]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

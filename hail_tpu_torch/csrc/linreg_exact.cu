@@ -39,16 +39,6 @@ constexpr int kJ = kTN / 128; // 4-sample words per lane per tile
 constexpr int kChunks = kCB * kTN / 16;          // 16-byte chunks per tile
 constexpr int kThreads = kWarps * 32;
 
-// four consecutive int8 at p (zero past `left` entries) as one word
-__device__ __forceinline__ int load4(const int8_t* p, int left, bool aligned) {
-  if (aligned && left >= 4) return *reinterpret_cast<const int*>(p);
-  unsigned v = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    if (b < left) v |= (unsigned)(uint8_t)p[b] << (8 * b);
-  return (int)v;
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 linreg_exact_pass_kernel(const int8_t* __restrict__ gz,
                          const int8_t* __restrict__ m,

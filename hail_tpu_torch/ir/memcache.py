@@ -52,6 +52,11 @@ def nbytes_of(obj: Any) -> int:
         cols.append(obj)
     while cols:
         c = cols.pop()
+        if getattr(c, '_build', None) is not None:
+            # an unbuilt DeferredObjectColumn: sized as an object array,
+            # not built (reading `values` would build it)
+            seen_bytes += int(np.prod(c.shape)) * 64
+            continue
         fields = getattr(c, 'fields', None)
         if fields:
             cols.extend(fields.values())

@@ -3,8 +3,12 @@
 `linear_regression_rows` with the reference's nd semantics (the
 `_linear_regression_rows_nd` blocked-GEMM blueprint, statgen.py:419-700)
 on the session's torch device — the exact int8 path (ops/linreg_i8.py) for
-integer x, the f64 path (ops/regression.py) for float x and weights — and
-`balding_nichols_model`, host code on the Threefry stream of ir/random.
+integer x, the f64 path (ops/regression.py) for float x and weights;
+`logistic_regression_rows` and `poisson_regression_rows`, batched
+per-variant fits on the device (ops/glm_device.py) over the same cached
+GT entry pair, with the host-faithful stats/glmfit.py loop as the
+fallback and oracle; and `balding_nichols_model`, host code on the
+Threefry stream of ir/random.
 """
 
 from __future__ import annotations
@@ -158,6 +162,40 @@ def _covariate_matrix(mt: MatrixTable, covariates) -> Tuple[np.ndarray, np.ndarr
     Cv = np.stack(cols, axis=1)
     Mv = np.stack(miss, axis=1).any(axis=1)
     return Cv, Mv
+
+
+def _ship_gt_pair(col: PrimitiveColumn, idx: np.ndarray, all_keep: bool,
+                  device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A partition's packed GT calls over the kept samples `idx` as the
+    device (gz8, m8) int8 pair that linreg and the GLMs share through
+    ops/devcache under ('gz8', field, sample fingerprint). Wire form: 2-bit
+    codes, 0.25 B/entry host-to-device (20x less than packed int32 + bool);
+    the codes are unpacked on the device (K4)."""
+    from ..ops.linreg_i8 import pack_gt_2bit, unpack_gt_2bit
+    packed = col.values if all_keep else col.values[:, idx]
+    miss = col.missing
+    if miss is not None and not all_keep:
+        miss = miss[:, idx]
+    u8 = pack_gt_2bit(np.ascontiguousarray(packed, np.int32), miss)
+    return unpack_gt_2bit(torch.from_numpy(u8).to(device), packed.shape[1])
+
+
+def _sample_fp(idx: np.ndarray, all_keep: bool) -> int:
+    """The sample part of a device-cache key: 0 when every sample is kept,
+    else a hash of the kept indices (linreg and the GLMs share entries)."""
+    return 0 if all_keep else hash(np.ascontiguousarray(idx).tobytes())
+
+
+def _glm_gt_pair(mb, gt_field: Optional[str], idx: np.ndarray, device):
+    """The partition's cached (gz8, m8) pair for x = GT.n_alt_alleles() over
+    the kept samples `idx`, under linreg's key; None for any other x."""
+    from ..ops import devcache
+    col = mb.entries.get(gt_field) if gt_field else None
+    if not (isinstance(col, C.PrimitiveColumn) and col.typ == ht.tcall):
+        return None
+    all_keep = bool(idx.size == col.values.shape[1])
+    return devcache.get(mb, ('gz8', gt_field, _sample_fp(idx, all_keep)),
+                        lambda: _ship_gt_pair(col, idx, all_keep, device))
 
 
 def _raise_unless_entry_indexed(caller: str, expr: Expression) -> None:
@@ -452,7 +490,7 @@ def linear_regression_rows(y, x, covariates, block_size: int = 16,
     all_keep = bool(grp0['n'] == Cov.shape[0])
     from ..ir.semhash import semhash
     x_sh = semhash(xe._ir)
-    idx_fp = hash(grp0['idx'].tobytes()) if not all_keep else 0
+    idx_fp = _sample_fp(grp0['idx'], all_keep)
     exact_consts = None
     if use_exact and not is_chained:
         # ship the per-call device constants ONCE (all partitions share W's
@@ -527,25 +565,13 @@ def linear_regression_rows(y, x, covariates, block_size: int = 16,
         if gt_field is not None:
             col = mb.entries.get(gt_field)
             if isinstance(col, C.PrimitiveColumn) and col.typ == ht.tcall:
-                def ship_decoded():
-                    # wire form: 2-bit codes, 0.25 B/entry over the link
-                    # (20× less h2d than packed int32+bool); cached form:
-                    # the decoded int8 pair, 2 B/entry resident in HBM
-                    from ..ops.linreg_i8 import pack_gt_2bit, unpack_gt_2bit
-                    packed = (col.values if all_keep
-                              else col.values[:, grp0['idx']])
-                    miss = col.missing
-                    if miss is not None and not all_keep:
-                        miss = miss[:, grp0['idx']]
-                    u8 = pack_gt_2bit(np.ascontiguousarray(packed, np.int32),
-                                      miss)
-                    return unpack_gt_2bit(torch.from_numpy(u8).to(device),
-                                          packed.shape[1])
                 if use_exact:
                     from ..ops.linreg_i8 import (linreg_block_gz_exact_packed,
                                                  _finish_stats_packed)
                     gz8, m8 = devcache.get(
-                        mb, ('gz8', gt_field, idx_fp), ship_decoded)
+                        mb, ('gz8', gt_field, idx_fp),
+                        lambda: _ship_gt_pair(col, grp0['idx'], all_keep,
+                                              device))
                     Wd, scd, Qtyd, yypd, dd = exact_consts
                     out = linreg_block_gz_exact_packed(
                         gz8, m8, Wd, scd, Qtyd, yypd, dd, grp0['Q'].shape[1])
@@ -625,6 +651,680 @@ def linear_regression_rows(y, x, covariates, block_size: int = 16,
         mt, per_part, out_fields, row_fields,
         entry_req=None if req is None else req['g'],
         row_req=None if req is None else req['va'])
+
+
+# ---------------------------------------------------------------------------
+# logistic / poisson regression
+# ---------------------------------------------------------------------------
+
+_LOGREG_TESTS = ('wald', 'lrt', 'score', 'firth')
+
+# reference numerical_regression_fit_dtype (statgen.py): the full fit struct
+_ND1 = ht.tndarray(ht.tfloat64, 1)
+_ND2 = ht.tndarray(ht.tfloat64, 2)
+_FIT_FULL_T = ht.tstruct(b=_ND1, score=_ND1, fisher=_ND2, mu=_ND1,
+                         n_iterations=ht.tint32, log_lkhd=ht.tfloat64,
+                         converged=ht.tbool, exploded=ht.tbool)
+_FIRTH_FIT_T = ht.tstruct(b=_ND1, mu=_ND1, n_iterations=ht.tint32,
+                          log_lkhd=ht.tfloat64, converged=ht.tbool,
+                          exploded=ht.tbool)
+_FIT_VIEW_T = ht.tstruct(n_iterations=ht.tint32, converged=ht.tbool,
+                         exploded=ht.tbool)
+
+
+def _fit_full_struct(fit: Optional[dict], keys=('b', 'score', 'fisher', 'mu')) -> Optional[Struct]:
+    if fit is None:
+        return None
+    d = {kk: fit.get(kk) for kk in keys}
+    d.update(n_iterations=int(fit['n_iterations']),
+             log_lkhd=float(fit['log_lkhd']), converged=bool(fit['converged']),
+             exploded=bool(fit['exploded']))
+    return Struct(**d)
+
+
+def _fit_view_struct(view: Optional[dict]) -> Optional[Struct]:
+    return None if view is None else Struct(**view)
+
+
+def _glm_column_setup(mt, ys, covariates):
+    """Shared column-plane prep: complete-case filter over all y + covariates
+    (reference `mt.filter_cols(hl.array(y + covariates).all(hl.is_defined))`).
+    Returns (keep_idx, covmat, yvecs)."""
+    yv_all = [_eval_col_f64(mt, e) for e in ys]
+    Cov, cov_miss = _covariate_matrix(mt, covariates)
+    keep = ~cov_miss
+    for _, m in yv_all:
+        keep &= ~m
+    idx = np.flatnonzero(keep)
+    covmat = Cov[idx]
+    yvecs = [v[idx] for v, _ in yv_all]
+    return idx, covmat, yvecs
+
+
+def _impute_host(Gk, Mk):
+    with np.errstate(invalid='ignore', divide='ignore'):
+        cnt = (~Mk).sum(axis=1)
+        mean = np.where(Mk, 0.0, Gk).sum(axis=1) / cnt
+    return np.where(Mk, mean[:, None], Gk)
+
+
+def _glm_raw_xvecs(mt, xe, mb, i, idx):
+    """Per-partition raw (x, missing) over kept samples (the device GLM tier
+    imputes on device; ops/glm_device.py)."""
+    G, M = _eval_entry_f64(mt, xe, mb, i)
+    return np.ascontiguousarray(G[:, idx]), np.ascontiguousarray(M[:, idx])
+
+
+def _glm_xvecs(mt, xe, mb, i, idx):
+    """Per-partition x over kept samples, mean-imputed (reference
+    `transmute(x=hl.nd.array(mean_impute(...)))`)."""
+    Gk, Mk = _glm_raw_xvecs(mt, xe, mb, i, idx)
+    return _impute_host(Gk, Mk)
+
+
+def _glm_use_device() -> bool:
+    """Device GLM tier is the default; HAIL_TPU_GLM_DEVICE=0 (or flag
+    glm_device_tier=0) falls back to the host-faithful per-variant loop."""
+    import os
+    env = os.environ.get('HAIL_TPU_GLM_DEVICE')
+    if env is not None:
+        return env not in ('0', 'false', 'False')
+    from ..context import Env
+    if Env.is_initialized():
+        v = Env.hc().flags.get('glm_device_tier')
+        if v is not None:
+            return str(v) not in ('0', 'false', 'False')
+    return True
+
+
+def _pnorm_vec(z):
+    import scipy.special
+    return 0.5 * scipy.special.erfc(-z / np.sqrt(2.0))
+
+
+def _pchisqtail_vec(x, df):
+    import scipy.special
+    with np.errstate(invalid='ignore'):
+        return scipy.special.gammaincc(df / 2.0, np.asarray(x) / 2.0)
+
+
+def _score_columns(dev):
+    """Score-test result columns from the device tier's arrays: NaN for a
+    NaN input row, missing where the reference's solve raised."""
+    chi = np.asarray(dev['chi_sq_stat'], np.float64)
+    nanin = np.asarray(dev['nan_input'], bool)
+    valid = np.asarray(dev['valid'], bool)
+    with np.errstate(invalid='ignore'):
+        p = _pchisqtail_vec(chi, 1.0)
+    miss = ~valid
+    chiv = np.where(nanin, np.nan, np.where(valid, chi, 0.0))
+    pv = np.where(nanin, np.nan, np.where(valid, p, 0.0))
+    return {'chi_sq_stat': C.PrimitiveColumn(ht.tfloat64, chiv, miss.copy()),
+            'p_value': C.PrimitiveColumn(ht.tfloat64, pv, miss)}
+
+
+def _logistic_device_columns(test, dev, covmat, null_fit, gi_thunk):
+    """Vectorized result columns from device GLM arrays (scalar-y fast
+    path): the per-variant stats become primitive columns built in bulk,
+    and the fit structs — including firth's n-length mu vectors — are
+    DeferredObjectColumns whose payload is only computed if something reads
+    them (the reference achieves the same via relational field pruning)."""
+    if test == 'score':
+        return _score_columns(dev)
+    k = covmat.shape[1]
+    f64, i32, bl = ht.tfloat64, ht.tint32, ht.tbool
+    P = C.PrimitiveColumn
+
+    if test == 'firth':
+        n_conv = dev['null_status'] == 1
+        f_conv = dev['full_status'] == 1
+        okr = n_conv & f_conv
+        R = okr.shape[0]
+        with np.errstate(invalid='ignore'):
+            chi = 2.0 * (dev['full_ll'] - dev['null_ll'])
+            p = _pchisqtail_vec(chi, 1.0)
+        miss = ~okr
+        memo = {}
+
+        def build_fits():
+            if 'r' not in memo:
+                nb, fb = dev['null_b'], dev['full_b']
+                null_mu = _np_sigmoid(nb @ covmat.T)            # (R, n)
+                Gi = gi_thunk()
+                full_mu = _np_sigmoid(fb[:, :k] @ covmat.T + Gi * fb[:, k:k + 1])
+                nulls = np.empty(R, object)
+                fulls = np.empty(R, object)
+                for r in range(R):
+                    nulls[r] = Struct(
+                        b=(nb[r].copy() if n_conv[r] else None),
+                        mu=(null_mu[r] if n_conv[r] else None),
+                        n_iterations=int(dev['null_n_iter'][r]),
+                        log_lkhd=float(dev['null_ll'][r]),
+                        converged=bool(n_conv[r]),
+                        exploded=bool(dev['null_status'][r] == 2))
+                    fulls[r] = None if not n_conv[r] else Struct(
+                        b=(fb[r].copy() if f_conv[r] else None),
+                        mu=(full_mu[r] if f_conv[r] else None),
+                        n_iterations=int(dev['full_n_iter'][r]),
+                        log_lkhd=float(dev['full_ll'][r]),
+                        converged=bool(f_conv[r]),
+                        exploded=bool(dev['full_status'][r] == 2))
+                memo['r'] = (nulls, fulls)
+            return memo['r']
+
+        return {
+            'beta': P(f64, np.where(okr, dev['full_b'][:, k], np.nan),
+                      miss.copy()),
+            'chi_sq_stat': P(f64, np.where(okr, chi, np.nan), miss.copy()),
+            'p_value': P(f64, np.where(okr, p, np.nan), miss.copy()),
+            'firth_null_fit': C.DeferredObjectColumn(
+                _FIRTH_FIT_T, R, lambda: build_fits()[0]),
+            'fit': C.DeferredObjectColumn(
+                _FIRTH_FIT_T, R, lambda: build_fits()[1]),
+        }
+
+    # wald / lrt
+    st_arr = np.asarray(dev['status'])
+    conv = st_arr == 1
+    R = conv.shape[0]
+    fit_col = C.StructColumn(_FIT_VIEW_T, {
+        'n_iterations': P(i32, np.asarray(dev['n_iter'],
+                                          np.float64).astype(np.int32)),
+        'converged': P(bl, conv.copy()),
+        'exploded': P(bl, st_arr == 2)})
+    miss = ~conv
+    b_last = dev['b'][:, -1]
+    if test == 'wald':
+        with np.errstate(invalid='ignore'):
+            p = 2.0 * _pnorm_vec(-np.abs(dev['z']).reshape(-1))
+        return {
+            'beta': P(f64, np.where(conv, b_last, np.nan), miss.copy()),
+            'standard_error': P(f64, np.where(conv, dev['se'].reshape(-1),
+                                              np.nan), miss.copy()),
+            'z_stat': P(f64, np.where(conv, dev['z'].reshape(-1), np.nan),
+                        miss.copy()),
+            'p_value': P(f64, np.where(conv, p, np.nan), miss.copy()),
+            'fit': fit_col,
+        }
+    with np.errstate(invalid='ignore'):
+        chi = 2.0 * (dev['ll'] - float(null_fit['log_lkhd']))
+        p = _pchisqtail_vec(chi, 1.0)
+    return {
+        'beta': P(f64, np.where(conv, b_last, np.nan), miss.copy()),
+        'chi_sq_stat': P(f64, np.where(conv, chi, np.nan), miss.copy()),
+        'p_value': P(f64, np.where(conv, p, np.nan), miss.copy()),
+        'fit': fit_col,
+    }
+
+
+def _poisson_device_columns(test, dev, covmat, null_fit, gi_thunk):
+    """Vectorized poisson result columns from device GLM arrays (mirrors
+    _logistic_device_columns; test_fit carries the reference's full fit
+    struct — b/score/fisher/mu — built lazily)."""
+    if test == 'score':
+        return _score_columns(dev)
+    k = covmat.shape[1]
+    f64, i32, bl = ht.tfloat64, ht.tint32, ht.tbool
+    P = C.PrimitiveColumn
+
+    st_arr = np.asarray(dev['status'])
+    conv = st_arr == 1
+    R = conv.shape[0]
+    n_iter = np.asarray(dev['n_iter'], np.float64).astype(np.int32)
+    fit_col = C.StructColumn(_FIT_VIEW_T, {
+        'n_iterations': P(i32, n_iter.copy()),
+        'converged': P(bl, conv.copy()),
+        'exploded': P(bl, st_arr == 2)})
+    memo = {}
+
+    def build_test_fit():
+        if 'r' not in memo:
+            b = dev['b']
+            Gi = gi_thunk()
+            eta = b[:, :k] @ covmat.T + Gi * b[:, k:k + 1]
+            with np.errstate(over='ignore'):
+                # a fit frozen at iteration 1 never stepped: its mu is the
+                # sigmoid prelude (reference statgen.py:1833 quirk); any
+                # stepped fit's mu is exp(eta)
+                mu = np.where((n_iter == 1)[:, None], _np_sigmoid(eta),
+                              np.exp(eta))
+            out = np.empty(R, object)
+            for r in range(R):
+                c = bool(conv[r])
+                out[r] = Struct(
+                    b=(b[r].copy() if c else None),
+                    score=(dev['score'][r].copy() if c else None),
+                    fisher=(dev['fisher'][r].copy() if c else None),
+                    mu=(mu[r] if c else None),
+                    n_iterations=int(n_iter[r]),
+                    log_lkhd=float(dev['ll'][r]),
+                    converged=c,
+                    exploded=bool(st_arr[r] == 2))
+            memo['r'] = out
+        return memo['r']
+
+    test_fit_col = C.DeferredObjectColumn(_FIT_FULL_T, R, build_test_fit)
+    miss = ~conv
+    b_last = dev['b'][:, -1]
+    if test == 'wald':
+        with np.errstate(invalid='ignore'):
+            p = 2.0 * _pnorm_vec(-np.abs(dev['z']).reshape(-1))
+        return {
+            'test_fit': test_fit_col,
+            'beta': P(f64, np.where(conv, b_last, np.nan), miss.copy()),
+            'standard_error': P(f64, np.where(conv, dev['se'].reshape(-1),
+                                              np.nan), miss.copy()),
+            'z_stat': P(f64, np.where(conv, dev['z'].reshape(-1), np.nan),
+                        miss.copy()),
+            'p_value': P(f64, np.where(conv, p, np.nan), miss.copy()),
+            'fit': fit_col,
+        }
+    with np.errstate(invalid='ignore'):
+        chi = 2.0 * (dev['ll'] - float(null_fit['log_lkhd']))
+        p = _pchisqtail_vec(chi, 1.0)
+    return {
+        'test_fit': test_fit_col,
+        'beta': P(f64, np.where(conv, b_last, np.nan), miss.copy()),
+        'chi_sq_stat': P(f64, np.where(conv, chi, np.nan), miss.copy()),
+        'p_value': P(f64, np.where(conv, p, np.nan), miss.copy()),
+        'fit': fit_col,
+    }
+
+
+def _logistic_device_row_structs(test, dev, covmat, Gi, null_fit):
+    """Device GLM arrays → per-row result dicts shaped exactly like
+    stats/glmfit's wald/lrt/score/firth test builders (None for the
+    reference's missing fields)."""
+    R = (dev['chi_sq_stat'] if test == 'score' else
+         dev['full_b'] if test == 'firth' else dev['b']).shape[0]
+    rows = []
+    if test == 'score':
+        p = _pchisqtail_vec(dev['chi_sq_stat'], 1.0)
+        for r in range(R):
+            if dev['nan_input'][r]:
+                rows.append(dict(chi_sq_stat=float('nan'),
+                                 p_value=float('nan')))
+            elif not dev['valid'][r]:
+                rows.append(dict(chi_sq_stat=None, p_value=None))
+            else:
+                rows.append(dict(chi_sq_stat=float(dev['chi_sq_stat'][r]),
+                                 p_value=float(p[r])))
+        return rows
+    if test == 'firth':
+        k = covmat.shape[1]
+        for r in range(R):
+            n_conv = dev['null_status'][r] == 1
+            null_view = dict(
+                b=(dev['null_b'][r].copy() if n_conv else None),
+                mu=(_np_sigmoid(covmat @ dev['null_b'][r]) if n_conv else None),
+                n_iterations=int(dev['null_n_iter'][r]),
+                log_lkhd=float(dev['null_ll'][r]),
+                converged=bool(n_conv),
+                exploded=bool(dev['null_status'][r] == 2))
+            if not n_conv:
+                rows.append(dict(beta=None, chi_sq_stat=None, p_value=None,
+                                 fit=None, firth_null_fit=null_view))
+                continue
+            f_conv = dev['full_status'][r] == 1
+            bf = dev['full_b'][r]
+            full_view = dict(
+                b=(bf.copy() if f_conv else None),
+                mu=(_np_sigmoid(covmat @ bf[:k] + Gi[r] * bf[k])
+                    if f_conv else None),
+                n_iterations=int(dev['full_n_iter'][r]),
+                log_lkhd=float(dev['full_ll'][r]),
+                converged=bool(f_conv),
+                exploded=bool(dev['full_status'][r] == 2))
+            if not f_conv:
+                rows.append(dict(beta=None, chi_sq_stat=None, p_value=None,
+                                 fit=full_view, firth_null_fit=null_view))
+                continue
+            chi = 2.0 * (float(dev['full_ll'][r]) - float(dev['null_ll'][r]))
+            rows.append(dict(beta=float(bf[k]), chi_sq_stat=chi,
+                             p_value=float(_pchisqtail_vec(chi, 1.0)),
+                             fit=full_view, firth_null_fit=null_view))
+        return rows
+    # wald / lrt
+    m = dev['b'].shape[1]
+    conv = dev['status'] == 1
+    fitv = [dict(n_iterations=int(dev['n_iter'][r]), converged=bool(conv[r]),
+                 exploded=bool(dev['status'][r] == 2)) for r in range(R)]
+    if test == 'wald':
+        with np.errstate(invalid='ignore'):
+            p = 2.0 * _pnorm_vec(-np.abs(dev['z']))
+        for r in range(R):
+            if conv[r]:
+                rows.append(dict(beta=float(dev['b'][r, m - 1]),
+                                 standard_error=float(dev['se'][r]),
+                                 z_stat=float(dev['z'][r]),
+                                 p_value=float(p[r]), fit=fitv[r]))
+            else:
+                rows.append(dict(beta=None, standard_error=None, z_stat=None,
+                                 p_value=None, fit=fitv[r]))
+        return rows
+    # lrt
+    chi = 2.0 * (dev['ll'] - float(null_fit['log_lkhd']))
+    p = _pchisqtail_vec(chi, 1.0)
+    for r in range(R):
+        if conv[r]:
+            rows.append(dict(beta=float(dev['b'][r, m - 1]),
+                             chi_sq_stat=float(chi[r]),
+                             p_value=float(p[r]), fit=fitv[r]))
+        else:
+            rows.append(dict(beta=None, chi_sq_stat=None, p_value=None,
+                             fit=fitv[r]))
+    return rows
+
+
+def _np_sigmoid(v):
+    with np.errstate(over='ignore'):
+        return 1.0 / (1.0 + np.exp(-v))
+
+
+def logistic_regression_rows(test: str, y, x, covariates, pass_through=(),
+                             max_iterations: Optional[int] = None,
+                             tolerance: Optional[float] = None) -> Table:
+    """Per-variant logistic GWAS, tests wald/lrt/score/firth — a faithful
+    port of the reference `_logistic_regression_rows_nd` (statgen.py:1310)
+    via stats/glmfit.py, preserving its Newton/Firth iteration semantics
+    (incl. exact n_iterations / exploded behavior)."""
+    from ..stats import glmfit
+    from ..utils.misc import FatalError
+    device = Env.device()
+    if test not in _LOGREG_TESTS:
+        raise ValueError(f'test must be one of {_LOGREG_TESTS}')
+    if max_iterations is None:
+        max_iterations = 25 if test != 'firth' else 100
+    if tolerance is None:
+        tolerance = 1e-8
+    assert tolerance > 0.0
+    if len(covariates) == 0:
+        raise ValueError('logistic regression requires at least one covariate expression')
+
+    xe = to_expr(x)
+    mt = xe._indices.source
+    if mt is None or not isinstance(mt, MatrixTable):
+        raise ValueError('x must be an entry expression')
+    _raise_unless_entry_indexed('logistic_regresion_rows/x', xe)
+
+    y_is_list = isinstance(y, (list, tuple))
+    if y_is_list and len(y) == 0:
+        raise ValueError("'logistic_regression_rows': found no values for 'y'")
+    ys = [to_expr(e) for e in (y if y_is_list else [y])]
+    for e in ys:
+        _raise_unless_column_indexed('logistic_regression_rows/y', e)
+    row_fields = _get_regression_row_fields(mt, pass_through,
+                                            'logistic_regression_rows')
+
+    idx, covmat, yvecs = _glm_column_setup(mt, ys, covariates)
+
+    # null fits (one per phenotype); non-convergence is a query error
+    # (reference fit_null .or_error, statgen.py:1582)
+    null_fits = []
+    for yvec in yvecs:
+        nf = glmfit.logreg_fit(covmat, yvec, None, max_iterations, tolerance)
+        if nf['exploded']:
+            raise FatalError(
+                "Failed to fit logistic regression null model (standard MLE "
+                f"with covariates only): exploded at Newton iteration {nf['n_iterations']}")
+        if not nf['converged']:
+            raise FatalError(
+                "Failed to fit logistic regression null model (standard MLE "
+                "with covariates only): Newton iteration failed to converge")
+        null_fits.append(nf)
+
+    if test == 'wald':
+        res_t = ht.tstruct(beta=ht.tfloat64, standard_error=ht.tfloat64,
+                           z_stat=ht.tfloat64, p_value=ht.tfloat64,
+                           fit=_FIT_VIEW_T)
+    elif test == 'lrt':
+        res_t = ht.tstruct(beta=ht.tfloat64, chi_sq_stat=ht.tfloat64,
+                           p_value=ht.tfloat64, fit=_FIT_VIEW_T)
+    elif test == 'score':
+        res_t = ht.tstruct(chi_sq_stat=ht.tfloat64, p_value=ht.tfloat64)
+    else:
+        res_t = ht.tstruct(beta=ht.tfloat64, chi_sq_stat=ht.tfloat64,
+                           p_value=ht.tfloat64, firth_null_fit=_FIRTH_FIT_T,
+                           fit=_FIRTH_FIT_T)
+
+    def run_test(X, yvec, null_fit):
+        if test == 'score':
+            return glmfit.logistic_score_test(X, yvec, null_fit)
+        if test == 'firth':
+            r = glmfit.firth_test(null_fit, X, yvec, max_iterations, tolerance)
+            return dict(beta=r['beta'], chi_sq_stat=r['chi_sq_stat'],
+                        p_value=r['p_value'],
+                        firth_null_fit=_firth_struct(r['firth_null_fit']),
+                        fit=_firth_struct(r['fit']))
+        fit = glmfit.logreg_fit(X, yvec, null_fit, max_iterations, tolerance)
+        if test == 'wald':
+            r = glmfit.wald_test(X, fit)
+        else:
+            r = glmfit.lrt_test(X, null_fit, fit)
+        r['fit'] = _fit_view_struct(r['fit'])
+        return r
+
+    def _firth_struct(f):
+        # glmfit.firth_test returns trimmed views; rebuild the reference
+        # firth fit struct (b/mu omitted when not converged)
+        if f is None:
+            return None
+        return Struct(b=f.get('b'), mu=f.get('mu'),
+                      n_iterations=f['n_iterations'],
+                      log_lkhd=f.get('log_lkhd'), converged=f['converged'],
+                      exploded=f['exploded'])
+
+    use_device = _glm_use_device() and max_iterations > 0
+
+    def _to_struct(d):
+        d = dict(d)
+        if 'firth_null_fit' in d:
+            d['firth_null_fit'] = _firth_struct(d['firth_null_fit'])
+            d['fit'] = _firth_struct(d['fit'])
+        elif 'fit' in d and isinstance(d['fit'], dict):
+            d['fit'] = _fit_view_struct(d['fit'])
+        return Struct(**d)
+
+    gt_field_glm = _match_gt_nalt(xe)
+
+    def per_part(mb, i):
+        if use_device:
+            # batched per-variant-frozen Newton/Firth on the device
+            # (ops/glm_device.py; parity with the host port is pinned by
+            # tests/test_torch_glm_device.py). x = GT.n_alt_alleles() reads
+            # the device-resident (gz8, m8) pair a linreg call caches: a
+            # warm GLM call moves nothing host-to-device
+            from ..ops import glm_device
+            pair = _glm_gt_pair(mb, gt_field_glm, idx, device)
+            if pair is not None:
+                G, M = pair
+                where = dict(cached=True)
+            else:
+                G, M = _glm_raw_xvecs(mt, xe, mb, i, idx)
+                where = dict(device=device)
+            R = int(G.shape[0])
+
+            def fit(yvec, nf):
+                return glm_device.logistic_rows_device(
+                    G, M, covmat, yvec, nf, test, max_iterations, tolerance,
+                    **where)
+
+            def host_x():
+                if pair is None:
+                    return _impute_host(G, M)
+                return _glm_xvecs(mt, xe, mb, i, idx)
+            if pair is not None and not y_is_list and R > 0:
+                # scalar y: the result columns in bulk; x is evaluated on
+                # the host only if something reads the firth fit structs
+                return _logistic_device_columns(
+                    test, fit(yvecs[0], null_fits[0]), covmat, null_fits[0],
+                    host_x)
+            rows = []
+            if R > 0:
+                Gi = host_x() if test == 'firth' else None
+                per_y = [_logistic_device_row_structs(test, fit(yvec, nf),
+                                                      covmat, Gi, nf)
+                         for yvec, nf in zip(yvecs, null_fits)]
+                rows = [[_to_struct(per_y[j][r]) for j in range(len(yvecs))]
+                        for r in range(R)]
+        else:
+            Xv = _glm_xvecs(mt, xe, mb, i, idx)        # (R, n) imputed
+            R = Xv.shape[0]
+            rows = []
+            for r in range(R):
+                Xr = np.hstack([covmat, Xv[r][:, None]])
+                results = [Struct(**run_test(Xr, yvec, nf))
+                           for yvec, nf in zip(yvecs, null_fits)]
+                rows.append(results)
+        if y_is_list:
+            vals = np.empty(R, dtype=object)
+            for r in range(R):
+                vals[r] = rows[r]
+            return {'logistic_regression': ObjectColumn(ht.tarray(res_t), vals)}
+        out = {}
+        for fname, ftype in res_t.fields.items():
+            out[fname] = C.from_pylist(ftype, [rows[r][0][fname] for r in range(R)])
+        return out
+
+    if y_is_list:
+        out_fields = [('logistic_regression', ht.tarray(res_t))]
+        g_t = ht.tstruct(null_fits=ht.tarray(_FIT_FULL_T))
+        g_batch = Batch.from_pylist(g_t, [Struct(
+            null_fits=[_fit_full_struct(nf) for nf in null_fits])])
+    else:
+        out_fields = list(res_t.fields.items())
+        g_batch = Batch.from_pylist(_FIT_FULL_T,
+                                    [_fit_full_struct(null_fits[0])])
+
+    # reference scalar-y ordering: key, pass_through, then test fields
+    # (ht.select(...) then transmute appends the flat fields last)
+    from ..ir.nodes import required_fields
+    req = required_fields([xe._ir])
+    t = _result_table_from_rows(
+        mt, per_part, out_fields, row_fields,
+        entry_req=None if req is None else req['g'],
+        row_req=None if req is None else req['va'],
+        globals_batch=g_batch)
+    return t
+
+
+def poisson_regression_rows(test: str, y, x, covariates, pass_through=(),
+                            max_iterations: int = 25,
+                            tolerance: Optional[float] = None) -> Table:
+    """Per-variant Poisson regression — faithful port of the reference
+    `_lowered_poisson_regression_rows` (statgen.py:1747), including its
+    initial-mu quirk on the wald/lrt paths."""
+    from ..stats import glmfit
+    from ..utils.misc import FatalError
+    device = Env.device()
+    if test not in ('wald', 'lrt', 'score'):
+        raise ValueError('poisson test must be wald/lrt/score')
+    assert max_iterations > 0
+    if tolerance is None:
+        tolerance = 1e-8
+    assert tolerance > 0.0
+    k = len(covariates)
+    if k == 0:
+        raise ValueError('_lowered_poisson_regression_rows: at least one covariate is required.')
+    _warn_if_no_intercept('_lowered_poisson_regression_rows', covariates)
+
+    xe = to_expr(x)
+    mt = xe._indices.source
+    if mt is None or not isinstance(mt, MatrixTable):
+        raise ValueError('x must be an entry expression')
+    _raise_unless_entry_indexed('_lowered_poisson_regression_rows/x', xe)
+    ye = to_expr(y)
+    row_fields = _get_regression_row_fields(mt, pass_through,
+                                            '_lowered_poisson_regression_rows')
+
+    idx, covmat, (yvec,) = _glm_column_setup(mt, [ye], covariates)
+    n = int(idx.size)
+    if n - k - 1 < 1:
+        raise FatalError(
+            f"_lowered_poisson_regression_rows: insufficient degrees of freedom: n={n}, k={k}")
+
+    logmean = float(np.log(yvec.sum() / n))
+    b0 = np.concatenate([[logmean], np.zeros(k - 1)])
+    mu0 = np.exp(covmat @ b0)
+    score0 = covmat.T @ (yvec - mu0)
+    fisher0 = (mu0 * covmat.T) @ covmat
+    null_fit = glmfit.poisson_fit(covmat, yvec, b0, mu0, score0, fisher0,
+                                  max_iterations, tolerance)
+    if not null_fit['converged']:
+        raise FatalError(
+            '_lowered_poisson_regression_rows: null model did not converge: '
+            f"{dict(n_iterations=null_fit['n_iterations'], log_lkhd=null_fit['log_lkhd'], converged=False, exploded=null_fit['exploded'])}")
+
+    if test == 'score':
+        out_fields = [('chi_sq_stat', ht.tfloat64), ('p_value', ht.tfloat64)]
+    elif test == 'wald':
+        out_fields = [('test_fit', _FIT_FULL_T), ('beta', ht.tfloat64),
+                      ('standard_error', ht.tfloat64), ('z_stat', ht.tfloat64),
+                      ('p_value', ht.tfloat64), ('fit', _FIT_VIEW_T)]
+    else:
+        out_fields = [('test_fit', _FIT_FULL_T), ('beta', ht.tfloat64),
+                      ('chi_sq_stat', ht.tfloat64), ('p_value', ht.tfloat64),
+                      ('fit', _FIT_VIEW_T)]
+
+    def per_row(xvec):
+        if test == 'score':
+            return glmfit.poisson_score_test(null_fit, covmat, yvec, xvec)
+        X = np.hstack([covmat, xvec[:, None]])
+        b = np.concatenate([null_fit['b'], [0.0]])
+        # faithful reference quirk (statgen.py:1833): the wald/lrt prelude
+        # evaluates the initial mu with sigmoid, not exp
+        mu = _np_sigmoid(X @ b)
+        residual = yvec - mu
+        score = np.concatenate([null_fit['score'], [xvec @ residual]])
+        f01 = ((covmat.T * mu) @ xvec).reshape(-1, 1)
+        f11 = np.array([[(mu * xvec) @ xvec]])
+        fisher = np.block([[null_fit['fisher'], f01], [f01.T, f11]])
+        test_fit = glmfit.poisson_fit(X, yvec, b, mu, score, fisher,
+                                      max_iterations, tolerance)
+        if test == 'lrt':
+            r = glmfit.lrt_test(X, null_fit, test_fit)
+        else:
+            r = glmfit.wald_test(X, test_fit)
+        r['fit'] = _fit_view_struct(r['fit'])
+        r['test_fit'] = _fit_full_struct(test_fit)
+        return r
+
+    gt_field_poi = _match_gt_nalt(xe)
+
+    def per_part(mb, i):
+        # device tier: same devcache-resident int8 entries as linreg /
+        # logistic, batched Newton on the device (ops/glm_device.py
+        # poisson_rows_device; parity pinned by tests/test_torch_glm_device.py)
+        pair = (_glm_gt_pair(mb, gt_field_poi, idx, device)
+                if _glm_use_device() else None)
+        if pair is not None:
+            from ..ops import glm_device
+            gz8, m8 = pair
+            R = int(gz8.shape[0])
+            if R > 0:
+                dev = glm_device.poisson_rows_device(
+                    gz8, m8, covmat, yvec, null_fit, test, max_iterations,
+                    tolerance, cached=True)
+                return _poisson_device_columns(
+                    test, dev, covmat, null_fit,
+                    lambda: _glm_xvecs(mt, xe, mb, i, idx))
+        Xv = _glm_xvecs(mt, xe, mb, i, idx)
+        R = Xv.shape[0]
+        rows = [per_row(Xv[r]) for r in range(R)]
+        out = {}
+        for fname, ftype in out_fields:
+            out[fname] = C.from_pylist(ftype, [rows[r][fname] for r in range(R)])
+        return out
+
+    g_batch = Batch.from_pylist(ht.tstruct(null_fit=_FIT_FULL_T),
+                                [Struct(null_fit=_fit_full_struct(null_fit))])
+    from ..ir.nodes import required_fields
+    req = required_fields([xe._ir])
+    return _result_table_from_rows(
+        mt, per_part, out_fields, row_fields,
+        entry_req=None if req is None else req['g'],
+        row_req=None if req is None else req['va'],
+        globals_batch=g_batch)
 
 
 # ---------------------------------------------------------------------------

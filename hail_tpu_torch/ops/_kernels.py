@@ -39,6 +39,7 @@ _SIGNATURES = {
                                _P, _P],
     'hail_unpack_gt_2bit': [_P, _LL, _I, _I, _P, _P, _P],
     'hail_ibs_counts': [_P, _I, _I, _P, _P, _P, _P],
+    'hail_linreg_i8_sums': [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 launches: Dict[str, int] = {name: 0 for name in _SIGNATURES}
@@ -117,7 +118,8 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f'{name}: CUDA error {err} at launch')
-    launches[name] += 1
+    with _lock:      # partitions launch from the backend's threads
+        launches[name] += 1
 
 
 def check(t, name: str, dtype, shape=None) -> None:

@@ -9,16 +9,20 @@ int32 partials are recombined in f64. The OLS epilogue (the reference nd
 formula, statgen.py:631, with algebraic mean imputation) runs in f64 torch
 on the device.
 
-Two hand-written CUDA kernels carry the device part (csrc/):
+Hand-written CUDA kernels carry the device part (csrc/):
 - `unpack_gt_2bit` (K4): 2-bit wire codes -> the cached (gz8, m8) pair;
-- `exact_pass` (K3): GWd, MWd, nmiss, s, ss in one read of (gz8, m8).
+- `exact_pass` (K3): GWd, MWd, nmiss, s, ss in one read of (gz8, m8);
+- `linreg_i8_sums` (K1): the f32 one-pass sums of `linreg_block_i8`, the
+  int8-storage f32-compute OLS (`linreg_stats_i8`), from int8 G with
+  -1 = missing.
 Each has its plain torch version beside it (`_unpack_plain`,
-`_exact_pass_plain`). A wrapper runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+`_exact_pass_plain`, `_sums_ref`). A wrapper runs the plain version only
+for CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +33,9 @@ from . import _kernels
 _EXACT_PLANES = 7
 _DIGIT_BITS = 7
 _MAX_EXACT_N = 8_000_000   # int32 accumulator: N·2·127 < 2³¹
+# f32 accumulator of K1: the row sums ΣM, ΣGz, ΣGz² are integers, exact in
+# f32 while below 2²⁴; with GT dosages ≤ 2, ΣGz² ≤ 4·N < 2²⁴
+_MAX_F32_N = (1 << 22) - 1
 
 
 def _digit_planes(W: np.ndarray, planes: int = _EXACT_PLANES,
@@ -242,3 +249,131 @@ def linreg_stats_i8_exact(G8: torch.Tensor, Q: np.ndarray, Ys: np.ndarray,
     out = _linreg_block_i8_exact_packed(
         G8, *exact_consts(Q, Ys, Qty, yyp, dof, G8.device), k)
     return _finish_stats_packed(out, Ys.shape[1], dof)
+
+
+# ---------------------------------------------------------------------------
+# K1: the f32 one-pass sums (int8 storage, f32 compute)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _true_f32_matmul():
+    """f32 products in full f32 for the call, as the reference's
+    Precision.HIGHEST asks: TF32 keeps about three decimal digits."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _sums_ref(G8: torch.Tensor, W: torch.Tensor):
+    """Plain version of K1: (Gz·W, M·W, [ΣM, ΣGz, ΣGz²]) in f32 from int8
+    G8 (R, N), -1 = missing, and f32 W (N, KP)."""
+    miss = G8 < 0
+    # cast before the product: CPU torch.mm on int8 wraps around
+    gz = torch.where(miss, 0, G8).to(torch.float32)
+    mf = miss.to(torch.float32)
+    with _true_f32_matmul():
+        gw = gz @ W
+        mw = mf @ W
+    st = torch.stack([mf.sum(dim=1), gz.sum(dim=1), (gz * gz).sum(dim=1)],
+                     dim=1)
+    return gw, mw, st
+
+
+def linreg_i8_sums(G8: torch.Tensor, W: torch.Tensor):
+    """K1: one pass over int8 G8 (R, N), -1 = missing, against f32 W
+    (N, KP): (GW, MW) f32 (R, KP) and ST = [ΣM, ΣGz, ΣGz²] f32 (R, 3).
+    The row sums are exact for GT dosages (≤ 2) while N ≤ `_MAX_F32_N`."""
+    R, N = G8.shape
+    KP = W.shape[1]
+    if N > _MAX_F32_N:
+        raise ValueError(f'f32 linreg: {N} samples exceed the f32 row-sum '
+                         f'bound {_MAX_F32_N}')
+    if G8.device.type == 'cpu':
+        return _sums_ref(G8, W)
+    if KP < 1:
+        raise ValueError('linreg_i8_sums: W has no columns')
+    _kernels.check(G8, 'linreg_i8_sums/G8', torch.int8)
+    _kernels.check(W, 'linreg_i8_sums/W', torch.float32, (N, KP))
+    dev = G8.device
+    GW = torch.empty((R, KP), dtype=torch.float32, device=dev)
+    MW = torch.empty((R, KP), dtype=torch.float32, device=dev)
+    ST = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    # WT (KP, ldw): W transposed and zero-padded to 16-byte rows, so the
+    # kernel reads four samples of a column as one float4
+    ldw = -(-N // 4) * 4
+    WT = torch.zeros((KP, ldw), dtype=torch.float32, device=dev)
+    WT[:, :N] = W.t()
+    _kernels.launch('hail_linreg_i8_sums', G8.data_ptr(), WT.data_ptr(), ldw,
+                    R, N, KP, GW.data_ptr(), MW.data_ptr(), ST.data_ptr())
+    return GW, MW, ST
+
+
+def _ols_epilogue(GW, MW, ST, n_pad_cols, N, k, Qty, yyp, d):
+    """The OLS finish of the f32 path, in f32 as the reference's is:
+    algebraic mean imputation and the reference nd block formula
+    (statgen.py:631) from the one-pass sums. `n_pad_cols` padded sample
+    columns count as all-missing (the port pads nothing and passes 0).
+    W = [Q | Ys]; degenerate fits propagate NaN (no masking)."""
+    f32 = torch.float32
+    nmiss = ST[:, 0] - n_pad_cols
+    cnt = float(N) - nmiss
+    s = ST[:, 1]
+    ss = ST[:, 2]
+    mean = s / cnt                                 # 0/0 → nan, as reference
+    GiW = GW + mean[:, None] * MW                  # imputed G @ [Q | Ys]
+    GQ = GiW[:, :k]
+    ytx = GiW[:, k:]
+    sum_x = s + mean * nmiss                       # sum of imputed x
+    with _true_f32_matmul():
+        xyp = ytx - GQ @ torch.as_tensor(Qty, device=GW.device).to(f32)
+    xxp = ss + mean * mean * nmiss - (GQ * GQ).sum(dim=1)
+    rec = 1.0 / xxp
+    beta = xyp * rec[:, None]
+    d32 = torch.as_tensor(d, device=GW.device).to(f32)
+    yyp32 = torch.as_tensor(yyp, device=GW.device).to(f32)
+    se = torch.sqrt((1.0 / d32) * (yyp32[None, :] * rec[:, None] - beta * beta))
+    t = beta / se
+    return sum_x, ytx, beta, se, t
+
+
+def linreg_block_i8(G8: torch.Tensor, W: torch.Tensor, Qty, yyp, d, k: int,
+                    use_pallas: bool = True):
+    """int8-storage f32-compute per-variant OLS.
+
+    G8: (R, N) int8, -1 = missing. W: (N, k+P) = [Q | Ys] with Q the
+    orthonormal covariate basis and Ys the phenotype matrix; Qty = Qᵀ Ys;
+    yyp the residual y·y; d the dof. Returns (sum_x, ytx, beta, se, t) f32
+    per the reference nd formula. `use_pallas=True` (the reference's name)
+    takes the sums from K1 (`linreg_i8_sums`); False is the explicit plain
+    route (`_sums_ref`)."""
+    W = W.to(device=G8.device, dtype=torch.float32).contiguous()
+    sums = linreg_i8_sums if use_pallas else _sums_ref
+    GW, MW, ST = sums(G8, W)
+    return _ols_epilogue(GW, MW, ST, 0, G8.shape[1], k, Qty, yyp, d)
+
+
+def _finish_stats(out, dof):
+    import scipy.stats as st
+    sum_x, ytx, beta, se, t = (np.asarray(v.cpu().numpy(), dtype=np.float64)
+                               for v in out)
+    with np.errstate(all='ignore'):
+        p = 2 * st.t.sf(np.abs(t), dof) if dof > 0 else np.full_like(t, np.nan)
+    return dict(sum_x=sum_x, y_transpose_x=ytx, beta=beta,
+                standard_error=se, t_stat=t, p_value=p)
+
+
+def linreg_stats_i8(G8: torch.Tensor, Q: np.ndarray, Ys: np.ndarray,
+                    Qty: np.ndarray, yyp: np.ndarray, dof: int):
+    """f32 results with p-values from int8 storage G8 (R, N), -1 =
+    missing, a tensor on the device; on CUDA the sums come from K1."""
+    dev = G8.device
+    k = Q.shape[1]
+    W = torch.from_numpy(np.concatenate([Q, Ys], axis=1).astype(np.float32))
+    out = linreg_block_i8(
+        G8, W.to(dev), torch.as_tensor(np.asarray(Qty, np.float64), device=dev),
+        torch.as_tensor(np.asarray(yyp, np.float64), device=dev), float(dof),
+        k)
+    return _finish_stats(out, dof)

@@ -4,11 +4,19 @@ neither jax nor hail_tpu, so on a machine without jax it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-All three kernels are integer kernels: their results are bit-equal to the
-plain versions (and to an int64 numpy oracle). Shapes cross the kernels'
-edges: N not a multiple of 4 (K4), R not a multiple of the 8 rows a K3
-block owns and C above its 40-column chunk, n not a multiple of K2's
-64-sample tile and m not a multiple of its 128-variant stage.
+K2, K3 and K4 are integer kernels: their results are bit-equal to the
+plain versions (and to an int64 numpy oracle). K1 sums exact f32
+products in f32: its row sums are integers, bit-equal; GW and MW are held
+to the f64 product within |x - exact| <= 1e-5 |exact| + 1e-5 l2, with l2
+the norm of the summed terms (the scale of random f32 rounding: an
+absolute bar alone fails on sums near zero of large terms), and to the
+plain version within 1e-4 |plain| + 2e-5 l2 (cuBLAS's long sequential f32
+sums drift further). Shapes cross the kernels' edges: N not a
+multiple of 4 (K4, K1), R not a multiple of the 8 rows a K3 or K1 block
+owns, C above K3's 40-column chunk and KP above K1's 8-column chunk, N
+above K1's 1,024-sample tile, n not a multiple of K2's 64-sample tile and
+m not a multiple of its 128-variant stage. The GLM device tier has no
+kernel of its own; it is held to its run on the CPU.
 """
 
 import numpy as np
@@ -125,3 +133,98 @@ def test_exact_core_on_the_card_matches_cpu(dev):
     assert np.array_equal(np.isnan(out['cuda']), np.isnan(out['cpu']))
     np.testing.assert_allclose(out['cuda'], out['cpu'], rtol=1e-10,
                                equal_nan=True)
+
+
+@pytest.mark.parametrize('R,N,KP', [(1, 1, 1), (37, 1003, 5), (100, 3001, 13),
+                                    (9, 2048, 8), (300, 10000, 5)])
+def test_linreg_i8_sums_matches_plain(dev, R, N, KP):
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    rng = np.random.default_rng(R + N + KP)
+    g = rng.integers(0, 3, (R, N)).astype(np.int8)
+    g[rng.random((R, N)) < 0.1] = -1
+    W = rng.normal(size=(N, KP)).astype(np.float32)
+    G8, Wd = (torch.from_numpy(a).to(dev) for a in (g, W))
+    before = _kernels.launches['hail_linreg_i8_sums']
+    got = li.linreg_i8_sums(G8, Wd)
+    assert _kernels.launches['hail_linreg_i8_sums'] == before + 1
+    plain = li._sums_ref(G8, Wd)
+    torch.cuda.synchronize()
+    gz = np.where(g < 0, 0, g).astype(np.float64)
+    m = (g < 0).astype(np.float64)
+    assert got[2].dtype == torch.float32 and torch.equal(got[2], plain[2])
+    np.testing.assert_array_equal(
+        got[2].cpu().numpy(), np.stack([m.sum(1), gz.sum(1), (gz * gz).sum(1)],
+                                       axis=1))
+    W64 = W.astype(np.float64)
+    for a, b, A in zip(got[:2], plain[:2], (gz, m)):
+        assert a.dtype == torch.float32 and a.shape == (R, KP)
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        exact, l2 = A @ W64, np.sqrt((A * A) @ (W64 * W64))
+        assert (np.abs(a - exact) <= 1e-5 * np.abs(exact) + 1e-5 * l2).all()
+        assert (np.abs(a - b) <= 1e-4 * np.abs(b) + 2e-5 * l2).all()
+
+
+def test_linreg_i8_sums_rejects_bad_input(dev):
+    from hail_tpu_torch.ops import linreg_i8 as li
+    g = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match='shape'):
+        li.linreg_i8_sums(g, torch.zeros((9, 2), device=dev))
+    with pytest.raises(TypeError):
+        li.linreg_i8_sums(g, torch.zeros((8, 2), dtype=torch.float64,
+                                         device=dev))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        li.linreg_i8_sums(g, torch.zeros((8, 2)))
+
+
+def test_linreg_stats_i8_on_the_card_matches_cpu(dev):
+    """K1's path on the card against the same path's plain version on the
+    CPU: f32 results at rtol 1e-4, atol 1e-5 (sums in another order)."""
+    from hail_tpu_torch.ops import linreg_i8 as li
+    rng = np.random.default_rng(12)
+    R, N, k, P = 64, 1500, 3, 2
+    g = rng.integers(0, 3, (R, N)).astype(np.int8)
+    g[rng.random((R, N)) < 0.05] = -1
+    g[7] = -1                                    # all-missing row -> NaN
+    cov = np.concatenate([np.ones((N, 1)), rng.normal(size=(N, k - 1))], 1)
+    Q, _ = np.linalg.qr(cov)
+    Ys = rng.normal(size=(N, P))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    out = {d.type: li.linreg_stats_i8(torch.from_numpy(g).to(d), Q, Ys, Qty,
+                                      yyp, N - k - 1)
+           for d in (dev, torch.device('cpu'))}
+    for f in ('sum_x', 'beta', 'standard_error', 't_stat', 'p_value'):
+        a, b = out['cuda'][f], out['cpu'][f]
+        assert np.array_equal(np.isnan(a), np.isnan(b)), f
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                   equal_nan=True, err_msg=f)
+
+
+@pytest.mark.parametrize('test', ['wald', 'firth', 'score'])
+def test_glm_device_on_the_card_matches_cpu(dev, test):
+    """The GLM tier's f64 fits on the card against the CPU, singular rows
+    included (cuSOLVER's Cholesky must report them as the CPU's does):
+    iteration counts and status equal, numbers at rtol 1e-9."""
+    from hail_tpu_torch.ops import glm_device as gd
+    from hail_tpu_torch.stats import glmfit
+    rng = np.random.RandomState(4)
+    N, R, k = 400, 40, 3
+    Cov = np.hstack([np.ones((N, 1)), rng.randn(N, k - 1)])
+    G = rng.binomial(2, 0.3, size=(R, N)).astype(np.float64)
+    M = rng.rand(R, N) < 0.05
+    y = (rng.rand(N) < 1 / (1 + np.exp(-(Cov @ rng.randn(k) * 0.4)))
+         ).astype(np.float64)
+    G[3], M[3] = 0.0, False                      # singular fisher
+    M[5] = True                                  # all missing: NaN
+    null = glmfit.logreg_fit(Cov, y, None, 25, 1e-8)
+    out = {d: gd.logistic_rows_device(G, M, Cov, y, null, test, 25, 1e-8,
+                                      device=d) for d in (dev, 'cpu')}
+    for key, b in out['cpu'].items():
+        a = np.asarray(out[dev][key], np.float64)
+        b = np.asarray(b, np.float64)
+        if 'status' in key or 'n_iter' in key or key in ('valid', 'nan_input'):
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        else:
+            assert np.array_equal(np.isnan(a), np.isnan(b)), key
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
+                                       equal_nan=True, err_msg=key)

@@ -20,6 +20,10 @@ rows = res.collect()
 assert len(rows) == 30 and any(np.isfinite(r.beta) for r in rows)
 ibd = hl.identity_by_descent(mt).collect()
 assert len(ibd) == 40 * 39 // 2
+mt = mt.annotate_cols(yb=hl.float64(mt.y > 0.5))
+glm = hl.logistic_regression_rows('wald', y=mt.yb, x=mt.GT.n_alt_alleles(),
+                                  covariates=[1.0]).collect()
+assert len(glm) == 30 and any(r.fit.converged for r in glm)
 hl.stop()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'

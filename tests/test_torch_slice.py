@@ -1,11 +1,15 @@
 """The port's public slice against hail_tpu on the same MatrixTable, on the
 CPU: `linear_regression_rows` (GT path, integer x, float x, chained y),
+`logistic_regression_rows` and `poisson_regression_rows` (every test; GT
+x from the cached entry pair, float x, list y, the host route),
 `identity_by_descent` and `balding_nichols_model`.
 
 Tolerances: linreg outputs rtol 1e-10 (the exact int8 path and the f64 path
-each against the reference's own; sums in another order); IBS counts and
-`n` equal; IBD Z0/Z1/Z2/PI_HAT rtol 1e-12 (the same float64 expressions of
-equal counts); simulated GT calls equal.
+each against the reference's own; sums in another order); GLM numbers rtol
+1e-9, atol 1e-12, with iteration counts and converged/exploded flags equal
+(tests/test_glm_device.py's bars); IBS counts and `n` equal; IBD
+Z0/Z1/Z2/PI_HAT rtol 1e-12 (the same float64 expressions of equal counts);
+simulated GT calls equal.
 """
 
 import importlib
@@ -68,6 +72,13 @@ def build_mt(pkg: str, seed: int = 0, n_samples=N_SAMPLES, rows=ROWS,
             v = np.abs(v) + 0.1
         cols[name] = PC(ht.tfloat64, v, m)
         col_t[name] = ht.tfloat64
+    # GLM phenotypes: binary (yb, and ybm with missing values) and counts
+    cols['yb'] = PC(ht.tfloat64, (rng.random(n_samples) < 0.4).astype(float))
+    cols['ybm'] = PC(ht.tfloat64,
+                     (rng.random(n_samples) < 0.5).astype(float),
+                     rng.random(n_samples) < 0.1)
+    cols['yc'] = PC(ht.tfloat64, rng.poisson(1.5, n_samples).astype(float))
+    col_t.update(yb=ht.tfloat64, ybm=ht.tfloat64, yc=ht.tfloat64)
     row_t = ht.tstruct(locus=ht.tlocus(ref), alleles=ht.tarray(ht.tstr))
     return mtm.MatrixTable(mtm.MatrixStage.from_batches(
         Batch({}, 1), Batch(cols, n_samples), ['locus', 'alleles'], ['s'],
@@ -155,6 +166,124 @@ def test_linear_regression_rows_matches_reference(hl, case, monkeypatch):
         assert devcache.stats()['hits'] == hits + PARTS
         for r1, r2 in zip(again, got):
             assert r1.beta == r2.beta or np.isnan(r2.beta)
+
+
+GLM_SHAPE = dict(n_samples=200, rows=40, parts=2)
+
+
+def _glm(hl_mod, mt, method, test, case):
+    covs = [1.0, mt.c0, mt.c1]
+    x = mt.X * 0.5 if case == 'float_x' else mt.GT.n_alt_alleles()
+    if method == 'poisson':
+        return hl_mod.poisson_regression_rows(test, y=mt.yc, x=x,
+                                              covariates=covs)
+    y = [mt.yb, mt.ybm] if case == 'gt_list' else mt.yb
+    return hl_mod.logistic_regression_rows(test, y=y, x=x, covariates=covs)
+
+
+def _assert_glm_close(a, b, path):
+    """GLM result values: structs and lists field by field, arrays and
+    floats at rtol 1e-9, atol 1e-12, everything else equal."""
+    from hail_tpu.utils.structs import Struct as RefStruct
+    from hail_tpu_torch.utils.structs import Struct as PortStruct
+    if isinstance(b, RefStruct):
+        assert isinstance(a, PortStruct), path
+        assert list(a) == list(b), path
+        for f in b:
+            _assert_glm_close(a[f], b[f], f'{path}.{f}')
+    elif isinstance(b, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_glm_close(x, y, f'{path}[{i}]')
+    elif isinstance(b, (float, np.ndarray)) and not isinstance(b, bool):
+        assert a is not None, path
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
+                                   equal_nan=True, err_msg=path)
+    else:
+        assert a == b, path
+
+
+@pytest.mark.parametrize('method,test,case', [
+    (m, t, c)
+    for m, tests, cases in (
+        ('logistic', ('wald', 'lrt', 'score', 'firth'),
+         ('gt', 'gt_list', 'float_x', 'host')),
+        ('poisson', ('wald', 'lrt', 'score'), ('gt', 'float_x', 'host')))
+    for t in tests for c in cases])
+def test_glm_regression_rows_matches_reference(hl, method, test, case,
+                                               monkeypatch):
+    from hail_tpu_torch.ops import devcache, glm_device
+    if case == 'host':
+        # the host-faithful route, in both packages
+        monkeypatch.setenv('HAIL_TPU_GLM_DEVICE', '0')
+    want = _glm(hl, build_mt('hail_tpu', seed=5, **GLM_SHAPE), method, test,
+                case).collect()
+    mt = build_mt('hail_tpu_torch', seed=5, **GLM_SHAPE)
+    devcache.clear()
+    fn = f'{method}_rows_device'
+    calls = []
+    real = getattr(glm_device, fn)
+    monkeypatch.setattr(glm_device, fn,
+                        lambda *a, **k: calls.append(k.get('cached', False))
+                        or real(*a, **k))
+    got = _glm(hlt, mt, method, test, case).collect()
+    # the route each case must take
+    if case == 'host' or (method == 'poisson' and case == 'float_x'):
+        assert not calls, f'{case} reached the device tier'
+    else:
+        assert calls and all(calls) == (case != 'float_x'), calls
+    assert len(got) == len(want) == GLM_SHAPE['parts'] * GLM_SHAPE['rows']
+    for r_got, r_want in zip(got, want):
+        assert repr(r_got.locus) == repr(r_want.locus)
+        assert list(r_got) == list(r_want)
+        for f in r_want:
+            if f not in ('locus', 'alleles'):
+                _assert_glm_close(r_got[f], r_want[f], f'{r_want.locus}.{f}')
+
+
+def test_glm_after_linreg_hits_devcache(monkeypatch):
+    """A GLM call after a linreg call on the same MatrixTable reads the
+    entry pair the linreg call cached: no decode (K4), no new entry."""
+    from hail_tpu_torch.ops import devcache, linreg_i8
+    mt = build_mt('hail_tpu_torch', seed=6, **GLM_SHAPE)
+    devcache.clear()
+    hlt.linear_regression_rows(y=mt.yb, x=mt.GT.n_alt_alleles(),
+                               covariates=[1.0, mt.c0]).collect()
+    before = devcache.stats()
+    unpacks = []
+    real = linreg_i8.unpack_gt_2bit
+    monkeypatch.setattr(linreg_i8, 'unpack_gt_2bit',
+                        lambda *a: unpacks.append(1) or real(*a))
+    for res in (hlt.logistic_regression_rows('wald', y=mt.yb,
+                                             x=mt.GT.n_alt_alleles(),
+                                             covariates=[1.0, mt.c0]),
+                hlt.poisson_regression_rows('score', y=mt.yc,
+                                            x=mt.GT.n_alt_alleles(),
+                                            covariates=[1.0, mt.c0])):
+        assert len(res.collect()) == GLM_SHAPE['parts'] * GLM_SHAPE['rows']
+    after = devcache.stats()
+    assert after['hits'] == before['hits'] + 2 * GLM_SHAPE['parts']
+    assert after['misses'] == before['misses'] and not unpacks
+
+
+@pytest.mark.parametrize('method,test,field', [('logistic', 'firth', 'fit'),
+                                               ('poisson', 'wald', 'test_fit')])
+def test_collect_batches_defers_fit_structs(hl, method, test, field):
+    """collect_batches memoizes each partition without building the
+    deferred fit structs (an n-long mu per variant); read afterwards, they
+    equal the reference's."""
+    from hail_tpu_torch.ir.columns import DeferredObjectColumn
+    mt = build_mt('hail_tpu_torch', seed=7, **GLM_SHAPE)
+    batches = _glm(hlt, mt, method, test, 'gt')._stage.collect_batches()
+    cols = [b.columns[field] for b in batches]
+    assert all(isinstance(c, DeferredObjectColumn) and c._vals is None
+               for c in cols)
+    want = _glm(hl, build_mt('hail_tpu', seed=7, **GLM_SHAPE), method, test,
+                'gt').collect()
+    got = [s for c in cols for s in c.values]
+    assert len(got) == len(want)
+    for s, r in zip(got, want):
+        _assert_glm_close(s, r[field], f'{r.locus}.{field}')
 
 
 def test_force_count_then_collect(hl):
