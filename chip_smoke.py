@@ -3,8 +3,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from hail_tpu_torch/csrc, holds each
-against its plain torch version on the card at the shapes of the main path,
-then drives the public entry points at the benchmark's size:
+against its plain torch version on the card at the shapes of the main path
+(K2 and K3, the tensor-core kernels, at one ragged shape each first), times
+each beside its plain version and its bound on this card, then drives the
+public entry points at the benchmark's size:
 `hl.linear_regression_rows` (GWAS, 10,000 samples x 4 x 8,192 variants,
 2% missing, 4 covariates), the f32 int8 path `linreg_stats_i8` over the
 same 32,768 variants, `hl.logistic_regression_rows` (wald over all 32,768
@@ -16,8 +18,10 @@ not build, launch or agree, when the main path did not launch every
 kernel, or when the results disagree with numpy, the exact path or the
 host GLM fits (stats/glmfit).
 
-The last lines of stdout: the method rates as JSON, the kernels as JSON,
-the card's name and power limit as nvidia-smi reports them, and
+The last lines of stdout: the method rates as JSON, the kernels as JSON
+(time, plain version's time, bound, share of the bound, launches on the
+method paths and per call), the card's name and power limit as nvidia-smi
+reports them, and
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 
@@ -42,6 +46,17 @@ MISSING = 0.02
 CHECK_ROWS = 256
 GLM_CHECK_ROWS = 32
 GLM_MAXIT, GLM_TOL = 25, 1e-8
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
+# full 700 W): device memory, int8 on the tensor cores, f32 outside them.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+# No peak is published for one-bit operands. The card issues the 1-bit MMA
+# (256 deep) at the rate of the int8 MMA (32 deep), which
+# hail_tpu_torch/csrc/bench/mma_rate.cu measures in this run: eight times
+# the int8 peak.
+B1_OPS_PER_S = 8 * INT8_OPS_PER_S
 
 
 def log(msg: str) -> None:
@@ -132,6 +147,82 @@ def compare_times(kernel, plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(n_bytes, n_ops=0, ops_per_s=INT8_OPS_PER_S, unit='int8_mma'):
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate and its operations over the peak rate of their
+    type. `bound_by` says which of the two, `bound_unit` which peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by='bytes', bound_unit='hbm')
+    return dict(bound_ms=t_ops, bound_by='operations', bound_unit=unit)
+
+
+def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
+    log(f'{name}: bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_unit"]}), the '
+        f'kernel reaches {bnd["bound_ms"] / ms:.3f} of it')
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                share_of_bound=bnd['bound_ms'] / ms, library_ms=library_ms,
+                **bnd)
+
+
+def ragged_checks(dev):
+    """K3 and K2 against their plain versions at shapes that are multiples
+    of no tile: K3 at R = 1,037, N = 3,001 (rows not 16-byte aligned),
+    C = 70 (two column groups); K2 at 1,003 variants x 333 samples."""
+    from hail_tpu_torch.ops import ibs, linreg_i8 as li
+    rng = np.random.default_rng(SEED + 1)
+    R, N, C = 1_037, 3_001, 70
+    m = (rng.random((R, N)) < MISSING).astype(np.int8)
+    g = rng.integers(0, 3, (R, N)).astype(np.int8) * (1 - m)
+    W = rng.integers(-127, 128, (N, C)).astype(np.int8)
+    gz8, m8, Wd = (torch.from_numpy(a).to(dev) for a in (g, m, W))
+    got = li.exact_pass(gz8, m8, li.exact_operand(Wd))
+    plain = li._exact_pass_plain(gz8, m8, Wd)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('GWd', 'MWd', 'nmiss', 's', 'ss'), got, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f'K3 at the ragged shape: {name} differs')
+    mv, n = 1_003, 333
+    nalt = rng.integers(0, 3, (mv, n))
+    called = rng.random((mv, n)) >= 0.1
+    called[:, 5] = False                         # a sample with no call
+    ind = [torch.from_numpy(a).to(dev) for a in
+           (called & (nalt == 1), called & (nalt == 0), called & (nalt == 2),
+            called)]
+    got = ibs.ibs_counts(*ind)
+    plain = ibs._ibs_plain(*ind)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('ibs0', 'ibs1', 'ibs2'), got, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f'K2 at the ragged shape: {name} differs')
+    log(f'ragged shapes: K3 ({R} x {N}, C = {C}) and K2 ({mv} x {n}) '
+        f'bit-equal to their plain versions')
+
+
+def int_mm_yardstick(gz8, m8, Wd):
+    """One library call beside K3, never called by the port: torch._int_mm
+    of the stacked (2R, N) [gz8; m8] against Wdig padded to 40 columns. It
+    computes the two products and not the three row sums. Returns its ms,
+    or None with the reason logged when it refuses the shape."""
+    try:
+        A = torch.cat([gz8, m8])
+        B = torch.zeros((Wd.shape[0], -(-Wd.shape[1] // 8) * 8),
+                        dtype=torch.int8, device=Wd.device)
+        B[:, :Wd.shape[1]] = Wd
+        out = torch._int_mm(A, B)
+        if not torch.equal(out[:gz8.shape[0], :Wd.shape[1]],
+                           (gz8.double() @ Wd.double()).to(torch.int32)):
+            raise RuntimeError('its product differs from the f64 product')
+        return timed_ms(lambda: torch._int_mm(A, B))
+    except (RuntimeError, AttributeError) as e:
+        log(f'K3 yardstick torch._int_mm: refused ({str(e).splitlines()[0]}); '
+            f'library_ms is null')
+        return None
+
+
 def exact_setup(cols_np):
     """The exact path's host operands for y = pheno, covariates
     [1, c0, c1, c2], as linear_regression_rows makes them."""
@@ -149,6 +240,7 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
     from hail_tpu_torch.ops import ibs, linreg_i8 as li
     nalts, misses = mt_parts
     records = []
+    ragged_checks(dev)
 
     # K4 at one partition of the GWAS: 8,192 x 10,000
     from hail_tpu_torch.genetics.call import pack_diploid
@@ -169,37 +261,49 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
                                  lambda: li._unpack_plain(u8, n))
     log(f'K4 unpack_gt_2bit {tuple(u8.shape)} -> 2 x {tuple(gz8.shape)}: '
         f'bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-    records.append(dict(name='unpack_gt_2bit', route='cuda',
-                        source='hail_tpu_torch/csrc/unpack_2bit.cu',
-                        replaces='hail_tpu/ops/linreg_i8.py:316',
-                        max_abs_err=float(err4), ms=ms, plain_ms=plain_ms))
+    # bytes: the packed codes in, the int8 pair out; its shift and compare
+    # per entry are counted as no operations (far below any rate)
+    R = gz8.shape[0]
+    records.append(record(
+        'unpack_gt_2bit', 'hail_tpu_torch/csrc/unpack_2bit.cu',
+        'hail_tpu/ops/linreg_i8.py:316', err4, ms, plain_ms,
+        bound(u8.numel() + 2 * R * n)))
 
     # K3 on that partition's (gz8, m8) against W = [Q | Ys] planes (C = 35)
     Q, Ys, Qty, yyp, dof = exact_setup(cols_np)
-    Wd, scd, Qtyd, yypd, dd = li.exact_consts(Q, Ys, Qty, yyp, dof, dev)
-    part_k = li.exact_pass(gz8, m8, Wd)
+    Wop, scd, Qtyd, yypd, dd = li.exact_consts(Q, Ys, Qty, yyp, dof, dev)
+    Wd = Wop.Wdig
+    part_k = li.exact_pass(gz8, m8, Wop)
     part_p = li._exact_pass_plain(gz8, m8, Wd)
     torch.cuda.synchronize()
     err3 = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                for a, b in zip(part_k, part_p))
     if err3:
         raise AssertionError(f'K3 exact pass: int32 partials differ by {err3}')
-    out_k = li._exact_core(gz8, m8, Wd, scd, Qtyd, yypd, dd, K)
+    out_k = li._exact_core(gz8, m8, Wop, scd, Qtyd, yypd, dd, K)
     out_p = li._exact_epilogue(*part_p, n, scd, Qtyd, yypd, dd, K)
     for a, b in zip(out_k, out_p):
         a, b = a.cpu().numpy(), b.cpu().numpy()
         if not np.array_equal(np.isnan(a), np.isnan(b)):
             raise AssertionError('K3 exact core: NaN positions differ')
         np.testing.assert_allclose(a, b, rtol=1e-10, equal_nan=True)
-    ms, plain_ms = compare_times(lambda: li.exact_pass(gz8, m8, Wd),
+    ms, plain_ms = compare_times(lambda: li.exact_pass(gz8, m8, Wop),
                                  lambda: li._exact_pass_plain(gz8, m8, Wd))
+    lib_ms = int_mm_yardstick(gz8, m8, Wd)
     log(f'K3 exact_pass gz8/m8 {tuple(gz8.shape)} x Wdig {tuple(Wd.shape)}: '
         f'int32 partials bit-equal, f64 outputs within rtol 1e-10; '
-        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-    records.append(dict(name='linreg_exact_pass', route='cuda',
-                        source='hail_tpu_torch/csrc/linreg_exact.cu',
-                        replaces='hail_tpu/ops/linreg_i8.py:246',
-                        max_abs_err=float(err3), ms=ms, plain_ms=plain_ms))
+        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm (the two '
+        f'products, not the row sums) '
+        f'{"refused" if lib_ms is None else f"{lib_ms:.4f} ms"}')
+    # bytes: gz8, m8 and Wdig in, two (R, C) and three (R,) int32 out;
+    # operations: 2C + 3 int8 multiply-adds per entry (two products of
+    # width C, three row sums)
+    C = Wd.shape[1]
+    records.append(record(
+        'linreg_exact_pass', 'hail_tpu_torch/csrc/linreg_exact.cu',
+        'hail_tpu/ops/linreg_i8.py:246', err3, ms, plain_ms,
+        bound(2 * R * n + n * C + 4 * (2 * R * C + 3 * R),
+              2 * (2 * C + 3) * R * n), lib_ms))
 
     # K1 on that partition as int8 G (-1 = missing) against W = [Q | Ys]
     # in f32 (KP = 5)
@@ -226,10 +330,15 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
         f'sums bit-equal; against the f64 product {"; ".join(notes)}; K1 vs '
         f'plain max abs diff {err1:.3g}; kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms')
-    records.append(dict(name='linreg_i8_sums', route='cuda',
-                        source='hail_tpu_torch/csrc/linreg_f32.cu',
-                        replaces='hail_tpu/ops/linreg_i8.py:45',
-                        max_abs_err=err1, ms=ms, plain_ms=plain_ms))
+    # bytes: G8 and f32 W in, two (R, KP) and one (R, 3) f32 out;
+    # operations: 2 KP + 3 true-f32 multiply-adds per entry (TF32 is ruled
+    # out), on the CUDA cores
+    KP = W.shape[1]
+    records.append(record(
+        'linreg_i8_sums', 'hail_tpu_torch/csrc/linreg_f32.cu',
+        'hail_tpu/ops/linreg_i8.py:45', err1, ms, plain_ms,
+        bound(R * n + 4 * n * KP + 4 * (2 * R * KP + 3 * R),
+              2 * (2 * KP + 3) * R * n, F32_FLOPS_PER_S, 'f32_fma')))
 
     # K2 at the IBD shape: 16,384 variants x 1,000 samples
     het, hom_ref, hom_var, called = (torch.from_numpy(a).to(dev)
@@ -246,10 +355,18 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
         lambda: ibs._ibs_plain(het, hom_ref, hom_var, called))
     log(f'K2 ibs_counts codes {tuple(codes.shape)} -> 3 x {tuple(got[0].shape)}: '
         f'bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-    records.append(dict(name='ibs_counts', route='cuda',
-                        source='hail_tpu_torch/csrc/ibs.cu',
-                        replaces='hail_tpu/ops/ibs.py:72',
-                        max_abs_err=float(err2), ms=ms, plain_ms=plain_ms))
+    # bytes: the codes in, three (n, n) int32 out; operations: what the
+    # function needs, five products of 0/1 indicators of depth m over the
+    # pairs i <= j (the outputs are symmetric), on one-bit operands
+    mv, ns = codes.shape
+    n_ops = 2 * 5 * mv * ns * (ns + 1) // 2
+    log(f'K2 operations: {n_ops / 1e9:.1f} GOP, '
+        f'{n_ops / B1_OPS_PER_S * 1e3:.4f} ms as 1-bit MMAs '
+        f'({n_ops / INT8_OPS_PER_S * 1e3:.4f} ms if they were int8)')
+    records.append(record(
+        'ibs_counts', 'hail_tpu_torch/csrc/ibs.cu', 'hail_tpu/ops/ibs.py:72',
+        err2, ms, plain_ms,
+        bound(mv * ns + 3 * 4 * ns * ns, n_ops, B1_OPS_PER_S, 'b1_mma')))
     return records
 
 
@@ -324,15 +441,18 @@ def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
             raise AssertionError(f'_force_count {n} != {n_variants}')
         return n_variants / dt
 
-    before = dict(_kernels.launches)
+    _kernels.reset_launch_counts()
     cold = run_count()
-    if (_kernels.launches['hail_unpack_gt_2bit'] == before['hail_unpack_gt_2bit']
-            or _kernels.launches['hail_linreg_exact_pass']
-            == before['hail_linreg_exact_pass']):
+    cold_launches = dict(_kernels.launches)
+    if not (cold_launches['hail_unpack_gt_2bit']
+            and cold_launches['hail_linreg_exact_pass']):
         raise AssertionError(f'GWAS cold call did not launch K3 and K4: '
-                             f'{_kernels.launches}')
+                             f'{cold_launches}')
     hits = devcache.hits
-    warm = [run_count(), run_count()]
+    warm = [run_count()]
+    warm_launches = {k: v - cold_launches[k]
+                     for k, v in _kernels.launches.items()}
+    warm.append(run_count())
     if devcache.hits <= hits:
         raise AssertionError(f'warm call missed devcache: {devcache.stats()}')
 
@@ -357,23 +477,66 @@ def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
         f'cold {cold:.1f} v/s, warm {warm[0]:.1f} and {warm[1]:.1f} v/s, '
         f'host-materialized {host:.1f} v/s; beta/se/t of {CHECK_ROWS} rows '
         f'match numpy f64 OLS at rtol 1e-10; devcache {devcache.stats()}')
-    return dict(cold=cold, warm=warm, host_materialized=host)
+    per_call = {'hail_unpack_gt_2bit': cold_launches['hail_unpack_gt_2bit'],
+                'hail_linreg_exact_pass':
+                    warm_launches['hail_linreg_exact_pass']}
+    launches = dict(_kernels.launches)
+    return (dict(cold=cold, warm=warm, host_materialized=host,
+                 warm_profile=profile_warm_call(run_count, n_variants)),
+            launches, per_call)
+
+
+def profile_warm_call(run_count, n_variants):
+    """One more warm call under torch.profiler: the milliseconds the card
+    was busy in it (the device time of its kernels and copies, summed), the
+    exact pass's share of them, and the idle share of the call. None, with
+    the reason logged, where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    try:
+        with profile(activities=acts):          # the tracer's own start-up
+            run_count()
+        with profile(activities=acts) as p:
+            call_ms = n_variants / run_count() * 1e3
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f'warm call profile: the profiler failed '
+            f'({str(e).splitlines()[0]}); device busy time not measured')
+        return None
+
+    def device_us(e):
+        return getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0))
+    events = p.key_averages()
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    k3_ms = sum(device_us(e) for e in events if 'exact_pass' in e.key) / 1e3
+    if not busy_ms:
+        log('warm call profile: the profiler shows no device time; device '
+            'busy time not measured')
+        return None
+    log(f'warm call profile: {call_ms:.3f} ms on the host clock (profiler on), '
+        f'device busy {busy_ms:.3f} ms (idle share {1 - busy_ms / call_ms:.3f}), '
+        f'of which the exact pass kernel {k3_ms:.3f} ms')
+    return dict(call_ms=call_ms, device_busy_ms=busy_ms, exact_pass_ms=k3_ms,
+                idle_share=1 - busy_ms / call_ms)
 
 
 def phase_linreg_f32(dev, nalts, misses, cols_np):
     """`linreg_stats_i8` (K1's path) over all partitions at full width,
     held to the exact path on the same G8 at the reference's f32 bar
-    (rtol 2e-4, atol 1e-6). Returns its variants/s."""
+    (rtol 2e-4, atol 1e-6). Returns its variants/s and the call's
+    launches (the comparison's are not among them)."""
     from hail_tpu_torch.ops import _kernels, linreg_i8 as li
     G8 = torch.from_numpy(np.concatenate(
         [g8_of(g, m) for g, m in zip(nalts, misses)])).to(dev)
     Q, Ys, Qty, yyp, dof = exact_setup(cols_np)
-    before = _kernels.launches['hail_linreg_i8_sums']
     torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
     t0 = time.perf_counter()
     got = li.linreg_stats_i8(G8, Q, Ys, Qty, yyp, dof)
     rate = G8.shape[0] / (time.perf_counter() - t0)
-    if _kernels.launches['hail_linreg_i8_sums'] == before:
+    launches = dict(_kernels.launches)
+    if not launches['hail_linreg_i8_sums']:
         raise AssertionError('linreg_stats_i8 did not launch K1')
     exact = li.linreg_stats_i8_exact(G8, Q, Ys, Qty, yyp, dof)
     for f in ('beta', 'p_value'):
@@ -385,7 +548,7 @@ def phase_linreg_f32(dev, nalts, misses, cols_np):
     log(f'linreg_stats_i8 (K1) {G8.shape[0]} variants x {G8.shape[1]} '
         f'samples: {rate:.1f} v/s; beta and p within rtol 2e-4, atol 1e-6 '
         f'of the exact path')
-    return rate
+    return rate, launches
 
 
 def _glm_host_rows(method, test, cov, y, x_rows):
@@ -492,7 +655,7 @@ def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent):
     mrow = misses[0][:GLM_CHECK_ROWS]
     x = np.where(mrow, (x.sum(axis=1) / (~mrow).sum(axis=1))[:, None], x)
     one = mt._filter_partitions([0])
-    k4 = _kernels.launches['hail_unpack_gt_2bit']
+    _kernels.reset_launch_counts()
     rates, tier = {}, {}
     for method, test, src, n in (
             ('logistic', 'wald', mt, n_variants),
@@ -530,22 +693,24 @@ def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent):
             f'{sum(spent):.3f} s summed over {len(spent)} partitions); '
             f'{GLM_CHECK_ROWS} rows match '
             f'stats/glmfit (iterations and flags equal, rtol 1e-9)')
-    if _kernels.launches['hail_unpack_gt_2bit'] != k4:
+    launches = dict(_kernels.launches)
+    if launches['hail_unpack_gt_2bit']:
         raise AssertionError('the GLM calls decoded GT again (K4 launched)')
-    return rates, tier
+    return rates, tier, launches
 
 
 def ibd_method(hl, mt):
     """hl.identity_by_descent at 1,000 samples x 16,384 variants: the pair
-    rows and the seconds of the call."""
+    rows, the seconds of the call and its launches."""
     from hail_tpu_torch.ops import _kernels
-    before = _kernels.launches['hail_ibs_counts']
+    _kernels.reset_launch_counts()
     t0 = time.perf_counter()
     rows = hl.identity_by_descent(mt).collect()
     total = time.perf_counter() - t0
-    if _kernels.launches['hail_ibs_counts'] == before:
+    launches = dict(_kernels.launches)
+    if not launches['hail_ibs_counts']:
         raise AssertionError('identity_by_descent did not launch K2')
-    return rows, total
+    return rows, total, launches
 
 
 def ibd_check(rows, total, mt, dev):
@@ -591,6 +756,11 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         _kernels.library()
     log(f'build: kernels ready in {time.perf_counter() - t0:.2f} s '
         f'(nvcc for sm_90a from hail_tpu_torch/csrc)')
+    if dev.type == 'cuda':
+        # the card's rate for the int8 and the 1-bit mma.sync, on which
+        # K2's design and the one-bit rate of its bound rest
+        for line in _kernels.run_bench('mma_rate'):
+            log(f'mma_rate: {line}')
 
     hl.init(device=str(dev), global_seed=0, quiet=True)
     # no partition retries: a failure in any partition fails the run
@@ -605,22 +775,32 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
 
     records = phase_kernels(dev, (nalts, misses), cols_np, ibd_ind)
 
-    # the main path: only the method calls' own launches count
-    _kernels.reset_launch_counts()
-    gwas = phase_gwas(hl, mt, n_parts * block_r, nalts, misses, cols_np)
-    gwas['linreg_stats_i8'] = phase_linreg_f32(dev, nalts, misses, cols_np)
-    glm, glm_s = phase_glm(hl, mt, n_parts * block_r, nalts, misses, cols_np)
-    ibd_rows, ibd_total = ibd_method(hl, mt_ibd)
-    counts = dict(_kernels.launches)
+    # the main paths: each sets the counts to 0 before it drives its
+    # method calls and reads them right after, so launches made to compare
+    # a kernel with its plain version are not among them
+    gwas, n_gwas, per_call = phase_gwas(hl, mt, n_parts * block_r, nalts,
+                                        misses, cols_np)
+    gwas['linreg_stats_i8'], n_f32 = phase_linreg_f32(dev, nalts, misses,
+                                                      cols_np)
+    glm, glm_s, n_glm = phase_glm(hl, mt, n_parts * block_r, nalts, misses,
+                                  cols_np)
+    ibd_rows, ibd_total, n_ibd = ibd_method(hl, mt_ibd)
     ibd = ibd_check(ibd_rows, ibd_total, mt_ibd, dev)
+    per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
+    per_call['hail_ibs_counts'] = n_ibd['hail_ibs_counts']
     names = {'unpack_gt_2bit': 'hail_unpack_gt_2bit',
              'linreg_exact_pass': 'hail_linreg_exact_pass',
              'linreg_i8_sums': 'hail_linreg_i8_sums',
              'ibs_counts': 'hail_ibs_counts'}
     for rec in records:
-        rec['launches'] = counts[names[rec['name']]]
+        c_name = names[rec['name']]
+        rec['launches'] = sum(n[c_name] for n in (n_gwas, n_f32, n_glm, n_ibd))
+        rec['launches_per_call'] = per_call[c_name]
         if not rec['launches']:
             raise AssertionError(f'the main path never launched {rec["name"]}')
+    log('launches on the method paths: ' + ', '.join(
+        f'{r["name"]} {r["launches"]} ({r["launches_per_call"]} per call)'
+        for r in records))
     hl.stop()
 
     loaded = [m for m, mod in sys.modules.items() if mod is not None and (
@@ -643,8 +823,9 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     records, gwas, glm, glm_s, ibd = run(dev)
-    order = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-             'ms', 'plain_ms')
+    order = ('name', 'route', 'source', 'replaces', 'launches',
+             'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+             'bound_by', 'bound_unit', 'share_of_bound', 'library_ms')
     print(json.dumps({'gwas_variants_per_s': gwas,
                       'glm_variants_per_s': glm, 'glm_seconds': glm_s,
                       'ibd_seconds': ibd}))

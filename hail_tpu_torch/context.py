@@ -170,10 +170,11 @@ class Env:
 
 def _resolve_device(device) -> torch.device:
     """'cuda' (or 'cuda:N') needs a card and raises without one; 'cpu' runs
-    every kernel's plain torch version (the tests). None picks 'cuda' when
-    a card is present, else 'cpu'."""
+    every kernel's plain torch version and is only ever the caller's
+    explicit choice (the tests make it). None means 'cuda': an `init` that
+    names no device never carries on on the CPU."""
     if device is None:
-        device = 'cuda' if torch.cuda.is_available() else 'cpu'
+        device = 'cuda'
     dev = torch.device(device)
     if dev.type == 'cuda':
         if not torch.cuda.is_available():

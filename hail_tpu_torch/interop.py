@@ -15,12 +15,14 @@ import torch
 
 
 def consts_from_reference(Wdig, scales, Qty, yyp, dof, device):
-    """(Wdig int8, scales f64, Qty f64, yyp f64, dof float) as the port's
-    `linreg_i8.exact_consts` returns them."""
+    """(ExactOperand of Wdig int8, scales f64, Qty f64, yyp f64, dof float)
+    as the port's `linreg_i8.exact_consts` returns them."""
+    from .ops.linreg_i8 import exact_operand
+
     def to(a, dtype):
         # a copy: the reference's arrays are read-only views of its buffers
         return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
-    return (to(Wdig, np.int8), to(scales, np.float64), to(Qty, np.float64),
+    return (exact_operand(to(Wdig, np.int8)), to(scales, np.float64), to(Qty, np.float64),
             to(yyp, np.float64), float(np.asarray(dof)))
 
 

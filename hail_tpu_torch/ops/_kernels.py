@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under `hail_tpu_torch/csrc/` compile with `nvcc` for `sm_90a`
-into one shared library with a plain C interface, built at first use into
+(one nvcc per source, started together, then one link) into one shared
+library with a plain C interface, built at first use into
 `hail_tpu_torch/_build/<hash of the sources>/` and loaded with ctypes.
 Nothing here runs at import: the CPU tests import every module on a
 machine without `nvcc` or a card.
@@ -35,10 +36,10 @@ _LL = ctypes.c_longlong
 # C entry point -> argument types (every pointer and the stream last as
 # c_void_p, so ctypes never narrows them to 32 bits)
 _SIGNATURES = {
-    'hail_linreg_exact_pass': [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                               _P, _P],
+    'hail_linreg_exact_pass': [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                               _P, _P, _P],
     'hail_unpack_gt_2bit': [_P, _LL, _I, _I, _P, _P, _P],
-    'hail_ibs_counts': [_P, _I, _I, _P, _P, _P, _P],
+    'hail_ibs_counts': [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     'hail_linreg_i8_sums': [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
@@ -83,17 +84,61 @@ def _build() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f'{lib}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-           '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-           '-o', tmp] + [p for p in srcs if p.endswith('.cu')]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f'{os.getpid()}.tmp'
+    tmp = f'{lib}.{tag}'
+    nvcc = _nvcc()
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for p in srcs:
+        if p.endswith('.cu'):
+            obj = os.path.join(out_dir, f'{os.path.basename(p)}.{tag}.o')
+            cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                   '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+                   '-c', '-o', obj, p]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, _, proc in jobs]
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, '-shared', '-o', tmp] + [obj for _, obj, _ in jobs]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        steps.append((cmd, res.stdout, res.returncode))
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(out_dir, 'nvcc.log'), 'w') as f:
-        f.write(' '.join(cmd) + '\n' + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
+        for cmd, out, _ in steps:
+            f.write(' '.join(cmd) + '\n' + out)
+    failed = [(cmd, out, rc) for cmd, out, rc in steps if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f'nvcc failed ({rc}): {" ".join(cmd)}\n{out}')
     os.replace(tmp, lib)
     return lib
+
+
+def run_bench(name: str) -> list:
+    """Build `csrc/bench/<name>.cu` (a program of its own that measures the
+    card, not a kernel of the library) and run it: its output lines. Raises
+    if it does not build or exits with another code than 0."""
+    src = os.path.join(_CSRC, 'bench', f'{name}.cu')
+    os.makedirs(_BUILD, exist_ok=True)
+    exe = os.path.join(_BUILD, f'{name}.{os.getpid()}')
+    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+           '-O3', '-o', exe, src]
+    try:
+        for step in (cmd, [exe]):
+            res = subprocess.run(step, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f'{name}: {" ".join(step)} failed '
+                                   f'({res.returncode})\n{res.stdout}')
+        return res.stdout.strip().splitlines()
+    finally:
+        if os.path.exists(exe):
+            os.remove(exe)
 
 
 def library() -> ctypes.CDLL:

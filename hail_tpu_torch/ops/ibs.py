@@ -5,9 +5,10 @@ called, the (n, n) counts
     IBS0 = hom_refᵀ·hom_var + hom_varᵀ·hom_ref
     IBS1 = hetᵀ·(hom_ref|hom_var) + (hom_ref|hom_var)ᵀ·het
     IBS2 = calledᵀ·called − IBS0 − IBS1
-On CUDA the hand-written kernel K2 (csrc/ibs.cu) counts them from int8
-class codes built on the device; `_ibs_plain` is its plain torch version,
-which the wrapper runs only for CPU tensors.
+On CUDA the hand-written kernel K2 (csrc/ibs.cu) takes the products on the
+tensor cores, as 1-bit AND-popcount MMAs over bit planes of class codes
+built on the device; `_ibs_plain` is its plain torch version, which the
+wrapper runs only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -43,15 +44,52 @@ def genotype_codes(het: torch.Tensor, hom_ref: torch.Tensor,
     return codes
 
 
+_TILE = 64        # samples per tile edge of K2
+_STAGE = 1024     # variants per stage of K2
+
+
+def _padded(m: int, n: int):
+    """(n_pad, m_pad): whole 64-sample tiles and 1,024-variant stages."""
+    return -(-n // _TILE) * _TILE, -(-m // _STAGE) * _STAGE
+
+
+def _code_bit_planes(codes: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2's first step, its operand: uint8 (n_pad, 2,
+    m_pad / 8), per sample the low bits of its codes and then the high
+    bits, variant v in bit v % 8 of byte v / 8 (the variants contiguous per
+    sample, which is what both operands of the 1-bit MMA want). Padding
+    samples and variants hold code 3 (missing, sets no indicator), up to
+    whole 64-sample tiles and 1,024-variant stages, so that every 16-byte
+    copy of the main kernel is aligned and in bounds."""
+    m, n = codes.shape
+    n_pad, m_pad = _padded(m, n)
+    full = torch.full((n_pad, m_pad), 3, dtype=torch.uint8,
+                      device=codes.device)
+    full[:n, :m] = codes.t().to(torch.uint8)
+    weights = 2 ** torch.arange(8, dtype=torch.int32, device=codes.device)
+    bits = torch.stack([full & 1, (full >> 1) & 1], dim=1)   # (n_pad, 2, m_pad)
+    return (bits.reshape(n_pad, 2, m_pad // 8, 8).to(torch.int32)
+            * weights).sum(dim=-1).to(torch.uint8)
+
+
 def ibs_counts_codes(codes: torch.Tensor):
-    """K2: (ibs0, ibs1, ibs2) int32 (n, n) from CUDA int8 codes (m, n)."""
+    """K2: (ibs0, ibs1, ibs2) int32 (n, n) from CUDA int8 codes (m, n) in
+    {0, 1, 2, 3}. One launch runs two kernels: the codes' bit planes into
+    `planes` (scratch; `_code_bit_planes` is its plain version) and the
+    counts as 1-bit tensor-core products."""
     _kernels.check(codes, 'ibs_counts/codes', torch.int8)
     m, n = codes.shape
+    n_pad, m_pad = _padded(m, n)
+    # scratch on the current stream, which is also the launch's: torch hands
+    # the block to a later allocation only in stream order, after the kernels
+    planes = torch.empty((n_pad, 2, m_pad // 8), dtype=torch.uint8,
+                         device=codes.device)
     # zeroed: the kernel's blocks add their variant slices into them
-    ibs0, ibs1, ibs2 = (torch.zeros((n, n), dtype=torch.int32,
-                                    device=codes.device) for _ in range(3))
+    ibs0, ibs1, ibs2 = torch.zeros((3, n, n), dtype=torch.int32,
+                                   device=codes.device).unbind(0)
     _kernels.launch('hail_ibs_counts', codes.data_ptr(), m, n,
-                    ibs0.data_ptr(), ibs1.data_ptr(), ibs2.data_ptr())
+                    planes.data_ptr(), m_pad, n_pad, ibs0.data_ptr(),
+                    ibs1.data_ptr(), ibs2.data_ptr())
     return ibs0, ibs1, ibs2
 
 

@@ -23,7 +23,7 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -127,41 +127,64 @@ def _exact_pass_plain(gz8: torch.Tensor, m8: torch.Tensor, Wdig: torch.Tensor):
             (gz32 * gz32).sum(dim=1, dtype=torch.int32))
 
 
-def exact_pass(gz8: torch.Tensor, m8: torch.Tensor, Wdig: torch.Tensor):
-    """One pass over (gz8, m8) int8 (R, N) against Wdig int8 (N, C):
-    (GWd, MWd) int32 (R, C) and (nmiss, s, ss) int32 (R,)."""
+class ExactOperand(NamedTuple):
+    """The right-hand operand of the exact pass, one per phenotype group.
+
+    Wdig (N, C) int8: the digit planes of W = [Q | Ys] (`_digit_planes`).
+    WT (Cp, ldw) int8: K3's layout of them, WT[:C, :N] = Wdig.T, row C all
+    ones over the N samples (its products are the row sums of gz8 and m8)
+    and zeros elsewhere; Cp = 8·(C // 8 + 1) whole MMA column tiles, ldw a
+    multiple of 16 >= N, so that the samples of a column are contiguous and
+    every row starts 16-byte aligned. `exact_operand` makes the pair; a
+    change to one tensor in place is not seen by the other."""
+    Wdig: torch.Tensor
+    WT: torch.Tensor
+
+
+def exact_operand(Wdig: torch.Tensor) -> ExactOperand:
+    """Wdig (N, C) int8 with its kernel layout, built here once."""
+    N, C = Wdig.shape
+    WT = torch.zeros(((C // 8 + 1) * 8, -(-N // 16) * 16), dtype=torch.int8,
+                     device=Wdig.device)
+    WT[:C, :N] = Wdig.t()
+    WT[C, :N] = 1
+    return ExactOperand(Wdig, WT)
+
+
+def exact_pass(gz8: torch.Tensor, m8: torch.Tensor, W: ExactOperand):
+    """One pass over (gz8, m8) int8 (R, N) against W.Wdig int8 (N, C):
+    (GWd, MWd) int32 (R, C) and (nmiss, s, ss) int32 (R,). The kernel reads
+    W.WT and allocates nothing but its outputs."""
     R, N = gz8.shape
     if N > _MAX_EXACT_N:
         raise ValueError(f'exact linreg: {N} samples exceed the int32 '
                          f'accumulator bound {_MAX_EXACT_N}')
+    Wdig, WT = W
     if gz8.device.type == 'cpu':
         return _exact_pass_plain(gz8, m8, Wdig)
     C = Wdig.shape[1]
     _kernels.check(gz8, 'exact_pass/gz8', torch.int8)
     _kernels.check(m8, 'exact_pass/m8', torch.int8, (R, N))
     _kernels.check(Wdig, 'exact_pass/Wdig', torch.int8, (N, C))
+    _kernels.check(WT, 'exact_pass/WT', torch.int8,
+                   ((C // 8 + 1) * 8, -(-N // 16) * 16))
     dev = gz8.device
     GWd = torch.empty((R, C), dtype=torch.int32, device=dev)
     MWd = torch.empty((R, C), dtype=torch.int32, device=dev)
     nmiss, s, ss = (torch.empty(R, dtype=torch.int32, device=dev)
                     for _ in range(3))
-    # WT (C, ldw): Wdig transposed and zero-padded to 16-byte rows, so the
-    # kernel reads four samples of a column as one word
-    ldw = -(-N // 16) * 16
-    WT = torch.zeros((C, ldw), dtype=torch.int8, device=dev)
-    WT[:, :N] = Wdig.t()
     _kernels.launch('hail_linreg_exact_pass', gz8.data_ptr(), m8.data_ptr(),
-                    WT.data_ptr(), ldw, R, N, C, GWd.data_ptr(),
-                    MWd.data_ptr(), nmiss.data_ptr(), s.data_ptr(),
-                    ss.data_ptr())
+                    WT.data_ptr(), WT.shape[1], R, N, C, WT.shape[0],
+                    GWd.data_ptr(), MWd.data_ptr(), nmiss.data_ptr(),
+                    s.data_ptr(), ss.data_ptr())
     return GWd, MWd, nmiss, s, ss
 
 
-def _exact_core(gz8, m8, Wdig, scales, Qty, yyp, d, k, planes=_EXACT_PLANES):
+def _exact_core(gz8, m8, W, scales, Qty, yyp, d, k, planes=_EXACT_PLANES):
     """gz8 (R,N) int8 zero-at-missing genotypes, m8 (R,N) int8 missing
-    indicators; device constants from `_digit_planes` and the OLS setup
-    (all f64 except Wdig). Returns (sum_x, ytx, beta, se, t) f64."""
-    return _exact_epilogue(*exact_pass(gz8, m8, Wdig), gz8.shape[1], scales,
+    indicators; the group's constants as `exact_consts` returns them (W an
+    `ExactOperand`, the others f64). Returns (sum_x, ytx, beta, se, t) f64."""
+    return _exact_epilogue(*exact_pass(gz8, m8, W), gz8.shape[1], scales,
                            Qty, yyp, d, k, planes)
 
 
@@ -192,22 +215,22 @@ def _exact_epilogue(GWd, MWd, nmiss_i, s_i, ss_i, N, scales, Qty, yyp, d, k,
     return sum_x, ytx, beta, se, t
 
 
-def linreg_block_gz_exact_packed(gz8, m8, Wdig, scales, Qty, yyp, d, k,
+def linreg_block_gz_exact_packed(gz8, m8, W, scales, Qty, yyp, d, k,
                                  planes=_EXACT_PLANES) -> torch.Tensor:
     """`_exact_core` from a decoded (gz8, m8) pair, as ONE stacked
     (R, 1+4P) f64 tensor so the host fetches a single buffer."""
-    sum_x, ytx, beta, se, t = _exact_core(gz8, m8, Wdig, scales, Qty, yyp,
+    sum_x, ytx, beta, se, t = _exact_core(gz8, m8, W, scales, Qty, yyp,
                                           d, k, planes)
     return torch.cat([sum_x[:, None], ytx, beta, se, t], dim=1)
 
 
-def _linreg_block_i8_exact_packed(G8, Wdig, scales, Qty, yyp, d, k,
+def _linreg_block_i8_exact_packed(G8, W, scales, Qty, yyp, d, k,
                                   planes=_EXACT_PLANES) -> torch.Tensor:
     """The stacked exact result from int8 G with -1 = missing."""
     miss = G8 < 0
     gz8 = torch.where(miss, torch.zeros((), dtype=torch.int8,
                                         device=G8.device), G8)
-    return linreg_block_gz_exact_packed(gz8, miss.to(torch.int8), Wdig,
+    return linreg_block_gz_exact_packed(gz8, miss.to(torch.int8), W,
                                         scales, Qty, yyp, d, k, planes)
 
 
@@ -230,10 +253,12 @@ def _finish_stats_packed(packed_out, P, dof):
 
 def exact_consts(Q: np.ndarray, Ys: np.ndarray, Qty: np.ndarray,
                  yyp: np.ndarray, dof, device):
-    """The device constants of one phenotype group: (Wdig int8, scales,
-    Qty, yyp f64 tensors, dof as a float)."""
+    """The device constants of one phenotype group: (W, scales, Qty, yyp,
+    dof), W the `ExactOperand` of the digit planes with the kernel's layout
+    built here once, the next three f64 tensors, dof a float."""
     Wdig, scales = _digit_planes(np.concatenate([Q, Ys], axis=1))
-    return (torch.from_numpy(np.ascontiguousarray(Wdig)).to(device),
+    Wdig = torch.from_numpy(np.ascontiguousarray(Wdig)).to(device)
+    return (exact_operand(Wdig),
             torch.from_numpy(scales).to(device),
             torch.as_tensor(np.asarray(Qty, np.float64), device=device),
             torch.as_tensor(np.asarray(yyp, np.float64), device=device),

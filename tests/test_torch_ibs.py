@@ -2,7 +2,7 @@
 the CPU: the reference's Pallas kernel in interpret mode and its int8
 `_ibs_dot`. Counts are integers: bit-equal. The sizes cross the Pallas
 kernel's 512-variant and 128-sample tile edges and the CUDA kernel's
-128-variant stage and 64-sample tile edges.
+1,024-variant stage and 64-sample tile edges.
 """
 
 import jax.numpy as jnp
@@ -67,3 +67,57 @@ def test_codes_kernel_needs_cuda():
     codes = torch.full((4, 3), 3, dtype=torch.int8)
     with pytest.raises(ValueError, match='CUDA tensor'):
         port.ibs_counts_codes(codes)
+
+
+def _expand(lo, hi):
+    """csrc/ibs.cu `expand` in numpy: the indicator bits of 32 codes from
+    the words of their low and high bit planes."""
+    return dict(hr=~(lo | hi), het=lo & ~hi, hv=hi & ~lo, homo=~lo,
+                called=~(lo & hi))
+
+
+@pytest.mark.parametrize('m,n', [(1, 1), (31, 5), (128, 64), (129, 65),
+                                 (600, 130), (1025, 3)])
+def test_kernel_operand_and_arithmetic(m, n):
+    """What surrounds K2's MMAs, on the CPU: the bit planes the wrapper's
+    first kernel makes of the codes (`_code_bit_planes` is its plain
+    version), the indicator words of a pair of plane words, the five
+    AND-popcount products (IBS0 and IBS1 at doubled depth) and the
+    upper-tile-plus-mirror rule, against the reference's `_ibs_dot` (and
+    the port's plain version)."""
+    het, hom_ref, hom_var, called = _indicators(m, n, seed=7 * m + n)
+    if n > 2:
+        for a in (het, hom_ref, hom_var, called):
+            a[:, 1] = False                              # an all-missing sample
+    ind = [torch.from_numpy(a) for a in (het, hom_ref, hom_var, called)]
+    codes = port.genotype_codes(*ind[:3])
+    planes = port._code_bit_planes(codes)
+    n_pad, m_pad = -(-n // 64) * 64, -(-m // 1024) * 1024
+    assert planes.dtype == torch.uint8 and planes.is_contiguous()
+    assert tuple(planes.shape) == (n_pad, 2, m_pad // 8)
+    bits = np.unpackbits(planes.numpy(), axis=-1, bitorder='little')
+    padded = np.full((n_pad, m_pad), 3, np.uint8)
+    padded[:n, :m] = codes.numpy().T
+    np.testing.assert_array_equal(bits[:, 0], padded & 1)
+    np.testing.assert_array_equal(bits[:, 1], padded >> 1)
+
+    words = np.ascontiguousarray(planes.numpy()).view(np.uint32)
+    x = {k: np.unpackbits(np.ascontiguousarray(v).view(np.uint8), axis=-1,
+                          bitorder='little').astype(np.int64)
+         for k, v in _expand(words[:, 0], words[:, 1]).items()}
+    for k, a in (('het', het), ('hr', hom_ref), ('hv', hom_var),
+                 ('called', called), ('homo', hom_ref | hom_var)):
+        np.testing.assert_array_equal(x[k][:n, :m], a.T.astype(np.int64))
+        assert not x[k][n:].any() and not x[k][:, m:].any()
+    # popcount(a & b) over the depth is the product of the 0/1 rows
+    ibs0 = x['hr'] @ x['hv'].T + x['hv'] @ x['hr'].T
+    ibs1 = x['het'] @ x['homo'].T + x['homo'] @ x['het'].T
+    ibs2 = x['called'] @ x['called'].T - ibs0 - ibs1
+    want = ref._ibs_dot(*(jnp.asarray(a) for a in (het, hom_ref, hom_var,
+                                                     called)))
+    plain = port._ibs_plain(*ind)
+    for got, w, pl in zip((ibs0, ibs1, ibs2), want, plain):
+        upper = np.triu(got[:n, :n])                     # elements j >= i
+        full = upper + np.triu(got[:n, :n], 1).T         # mirrored where j > i
+        np.testing.assert_array_equal(full, np.asarray(w))
+        np.testing.assert_array_equal(full, pl.numpy())

@@ -12,11 +12,18 @@ the norm of the summed terms (the scale of random f32 rounding: an
 absolute bar alone fails on sums near zero of large terms), and to the
 plain version within 1e-4 |plain| + 2e-5 l2 (cuBLAS's long sequential f32
 sums drift further). Shapes cross the kernels' edges: N not a
-multiple of 4 (K4, K1), R not a multiple of the 8 rows a K3 or K1 block
-owns, C above K3's 40-column chunk and KP above K1's 8-column chunk, N
-above K1's 1,024-sample tile, n not a multiple of K2's 64-sample tile and
-m not a multiple of its 128-variant stage. The GLM device tier has no
-kernel of its own; it is held to its run on the CPU.
+multiple of 4 (K4, K1), KP above K1's 8-column chunk, N above K1's
+1,024-sample tile, R not a multiple of the 8 rows a K1 block owns. K3: R
+below and not a multiple of its 64-row tile, N below the MMA depth of 32,
+not a multiple of its 128-sample stage, not a multiple of 16 (the
+register-staged load path, with 4-byte and with single-byte loads) and a
+base pointer off 16 bytes, C of 7, 35, 40 (no spare column in its last
+tile), 48, 70 and 84 (the 96-column variant, one and several chunks). K2:
+n below and not a multiple of its 64-sample tile, m not a multiple of 32
+nor of its 1,024-variant stage, shapes that are whole tiles and stages (no
+padding), enough variants for several stages and slices, and samples with
+every call missing. The GLM device tier has no kernel of its own; it is held to its
+run on the CPU.
 """
 
 import numpy as np
@@ -56,7 +63,13 @@ def test_unpack_rejects_bad_input(dev):
 
 
 @pytest.mark.parametrize('R,N,C,gmax', [(1, 1, 7, 2), (37, 1003, 35, 2),
-                                        (100, 3000, 84, 2), (9, 513, 35, 127)])
+                                        (100, 3000, 84, 2), (9, 513, 35, 127),
+                                        (64, 1024, 35, 2), (5, 17, 7, 2),
+                                        (16, 31, 35, 3), (130, 1000, 70, 2),
+                                        (200, 4096, 70, 2), (70, 2048, 40, 2),
+                                        (33, 10000, 35, 2), (65, 640, 48, 2),
+                                        (300, 1030, 120, 2),
+                                        (129, 2000, 35, 127)])
 def test_exact_pass_matches_plain(dev, R, N, C, gmax):
     from hail_tpu_torch.ops import _kernels, linreg_i8 as li
     rng = np.random.default_rng(R + N + C)
@@ -66,7 +79,7 @@ def test_exact_pass_matches_plain(dev, R, N, C, gmax):
     W = rng.integers(-127, 128, (N, C)).astype(np.int8)
     gz8, m8, Wd = (torch.from_numpy(a).to(dev) for a in (g, m, W))
     before = _kernels.launches['hail_linreg_exact_pass']
-    got = li.exact_pass(gz8, m8, Wd)
+    got = li.exact_pass(gz8, m8, li.exact_operand(Wd))
     assert _kernels.launches['hail_linreg_exact_pass'] == before + 1
     plain = li._exact_pass_plain(gz8, m8, Wd)
     torch.cuda.synchronize()
@@ -78,25 +91,96 @@ def test_exact_pass_matches_plain(dev, R, N, C, gmax):
         np.testing.assert_array_equal(a.cpu().numpy(), o)
 
 
+@pytest.mark.parametrize('offset,N', [(4, 1024), (1, 1024), (16, 1024),
+                                      (8, 1000)])
+def test_exact_pass_off_aligned_base(dev, offset, N):
+    """(gz8, m8) that start `offset` bytes into their allocations: rows
+    that are not 16-byte aligned take the register-staged loads."""
+    from hail_tpu_torch.ops import linreg_i8 as li
+    rng = np.random.default_rng(offset + N)
+    R, C = 70, 35
+    g = rng.integers(0, 3, (R, N)).astype(np.int8)
+    m = (rng.random((R, N)) < 0.1).astype(np.int8)
+    g[m == 1] = 0
+    W = torch.from_numpy(rng.integers(-127, 128, (N, C)).astype(np.int8)).to(dev)
+
+    def shifted(a):
+        buf = torch.zeros(offset + a.size, dtype=torch.int8, device=dev)
+        buf[offset:] = torch.from_numpy(a).to(dev).reshape(-1)
+        return buf[offset:].view(R, N)
+
+    gz8, m8 = shifted(g), shifted(m)
+    assert gz8.is_contiguous() and gz8.data_ptr() % 16 == offset % 16
+    got = li.exact_pass(gz8, m8, li.exact_operand(W))
+    plain = li._exact_pass_plain(gz8, m8, W)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+def test_exact_pass_takes_the_group_constants(dev):
+    """`exact_consts` hands `exact_pass` its operand ready-made, on the
+    card: the same partials as from an operand made of a copy of Wdig."""
+    from hail_tpu_torch.ops import linreg_i8 as li
+    rng = np.random.default_rng(21)
+    R, N, k, P = 90, 1500, 4, 1
+    g = rng.integers(0, 3, (R, N)).astype(np.int8)
+    m = (rng.random((R, N)) < 0.05).astype(np.int8)
+    g[m == 1] = 0
+    Q = np.linalg.qr(rng.normal(size=(N, k)))[0]
+    Ys = rng.normal(size=(N, P))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    W = li.exact_consts(Q, Ys, Qty, yyp, N - k - 1, dev)[0]
+    assert W.Wdig.device.type == W.WT.device.type == 'cuda'
+    gz8, m8 = torch.from_numpy(g).to(dev), torch.from_numpy(m).to(dev)
+    got = li.exact_pass(gz8, m8, W)
+    bare = li.exact_pass(gz8, m8, li.exact_operand(W.Wdig.clone()))
+    plain = li._exact_pass_plain(gz8, m8, W.Wdig)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, bare, plain):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 def test_exact_pass_rejects_bad_input(dev):
     from hail_tpu_torch.ops import linreg_i8 as li
     g = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+
+    def operand(N):
+        return li.exact_operand(torch.zeros((N, 7), dtype=torch.int8,
+                                            device=dev))
     with pytest.raises(ValueError, match='shape'):
-        li.exact_pass(g, g, torch.zeros((9, 7), dtype=torch.int8, device=dev))
+        li.exact_pass(g, g, operand(9))
     with pytest.raises(ValueError, match='contiguous'):
         li.exact_pass(torch.zeros((8, 4), dtype=torch.int8, device=dev).T, g,
-                      torch.zeros((8, 7), dtype=torch.int8, device=dev))
+                      operand(8))
     with pytest.raises(ValueError, match='CUDA tensor'):
-        li.exact_pass(g, g.cpu(), torch.zeros((8, 7), dtype=torch.int8,
-                                              device=dev))
+        li.exact_pass(g, g.cpu(), operand(8))
+    # a layout that is not this Wdig's
+    with pytest.raises(ValueError, match='exact_pass/WT'):
+        li.exact_pass(g, g, li.ExactOperand(operand(8).Wdig, operand(40).WT))
 
 
-@pytest.mark.parametrize('m,n', [(1, 1), (600, 130), (129, 65), (1000, 257)])
+@pytest.mark.parametrize('m,n', [(1, 1), (600, 130), (129, 65), (1000, 257),
+                                 (128, 64), (31, 5), (4096, 200), (33, 63),
+                                 (256, 192), (20000, 100), (700, 1000),
+                                 (2048, 64), (1025, 130), (40000, 70)])
 def test_ibs_matches_plain(dev, m, n):
+    _ibs_against_plain(dev, m, n, all_missing=False)
+
+
+@pytest.mark.parametrize('m,n', [(600, 130), (31, 5), (256, 192), (3000, 66)])
+def test_ibs_with_all_missing_samples(dev, m, n):
+    _ibs_against_plain(dev, m, n, all_missing=True)
+
+
+def _ibs_against_plain(dev, m, n, all_missing):
     from hail_tpu_torch.ops import _kernels, ibs
     rng = np.random.default_rng(m * n)
     nalt = rng.integers(0, 3, (m, n))
     called = rng.random((m, n)) >= 0.1
+    if all_missing:
+        called[:, ::3] = False                   # every third sample
     het, hom_ref, hom_var = (called & (nalt == c) for c in (1, 0, 2))
     ind = [torch.from_numpy(a).to(dev) for a in (het, hom_ref, hom_var, called)]
     before = _kernels.launches['hail_ibs_counts']
@@ -107,6 +191,8 @@ def test_ibs_matches_plain(dev, m, n):
     for a, b in zip(got, plain):
         assert a.dtype == torch.int32 and a.shape == (n, n)
         assert torch.equal(a, b)
+    if all_missing:
+        assert not any(a[0].any() or a[:, 0].any() for a in got)
 
 
 def test_exact_core_on_the_card_matches_cpu(dev):

@@ -154,5 +154,42 @@ def test_exact_pass_rejects_too_many_samples():
     # N above the int32 accumulator bound; R = 0 rows allocate nothing
     gz8 = torch.empty((0, port._MAX_EXACT_N + 1), dtype=torch.int8)
     with pytest.raises(ValueError, match='int32 accumulator'):
-        port.exact_pass(gz8, gz8, torch.empty((port._MAX_EXACT_N + 1, 7),
-                                              dtype=torch.int8))
+        Wd = torch.empty((port._MAX_EXACT_N + 1, 7), dtype=torch.int8)
+        port.exact_pass(gz8, gz8, port.ExactOperand(Wd, Wd))
+
+
+@pytest.mark.parametrize('R,N,k,P', [(9, 31, 1, 0), (40, 257, 3, 2),
+                                     (33, 1003, 4, 1), (17, 64, 3, 5)])
+def test_kernel_layout_products_equal_the_reference_partials(R, N, k, P):
+    """K3's arithmetic on the CPU: int products of (gz8, m8) with the
+    kernel's operand `exact_operand(Wdig).WT` (Wdig transposed, a row of ones,
+    zero padding) are the reference's int32 partials in columns < C and
+    its row sums Σgz8, Σm8 in column C; Σgz8² is the product of gz8 with
+    itself. Bit-equal."""
+    (gz8_r, m8_r), (Wd, sc, Qty, yyp, dof) = _reference_pair_and_consts(
+        R, N, k, max(P, 1), seed=R + N)
+    Wd = Wd[:, :7 * (k + P)] if P == 0 else Wd       # C = 7, 35, 35, 56
+    gz, m = np.asarray(gz8_r).astype(np.int64), np.asarray(m8_r).astype(np.int64)
+    C = Wd.shape[1]
+    WT = port.exact_operand(
+        torch.from_numpy(np.ascontiguousarray(Wd))).WT.numpy()
+    ldw = WT.shape[1]
+    pad = np.zeros((R, ldw - N), np.int64)           # the zero-filled tail
+    g_ext = np.concatenate([gz, pad], axis=1) @ WT.astype(np.int64).T
+    m_ext = np.concatenate([m, pad], axis=1) @ WT.astype(np.int64).T
+    want = port._exact_pass_plain(torch.from_numpy(np.array(gz8_r)),
+                                  torch.from_numpy(np.array(m8_r)),
+                                  torch.from_numpy(np.ascontiguousarray(Wd)))
+    GWd, MWd, nmiss, s, ss = (a.numpy() for a in want)
+    np.testing.assert_array_equal(g_ext[:, :C], GWd)
+    np.testing.assert_array_equal(m_ext[:, :C], MWd)
+    np.testing.assert_array_equal(g_ext[:, C], s)
+    np.testing.assert_array_equal(m_ext[:, C], nmiss)
+    assert not g_ext[:, C + 1:].any() and not m_ext[:, C + 1:].any()
+    np.testing.assert_array_equal((gz * gz).sum(axis=1), ss)
+    # and they are the reference's: its two dot_generals and row sums
+    Wj = jnp.asarray(Wd)
+    np.testing.assert_array_equal(
+        GWd, np.asarray(jnp.dot(gz8_r.astype(jnp.int32), Wj.astype(jnp.int32))))
+    np.testing.assert_array_equal(
+        s, np.asarray(gz8_r.astype(jnp.int32).sum(axis=1)))

@@ -170,10 +170,98 @@ def test_init_device_selection():
         with pytest.raises(ValueError, match='unsupported device'):
             hl.init(device='meta', quiet=True)
         if not torch.cuda.is_available():
+            # no card: 'cuda' raises, and so does naming no device; the CPU
+            # is only ever the caller's explicit choice
             with pytest.raises(RuntimeError, match='is_available'):
                 hl.init(device='cuda', quiet=True)
+            with pytest.raises(RuntimeError, match='is_available'):
+                hl.init(device=None, quiet=True)
+            with pytest.raises(RuntimeError, match='is_available'):
+                hl.init(quiet=True)
+            assert not hl.context.Env.is_initialized()
     finally:
         hl.stop()
+
+
+@pytest.mark.parametrize('method', ['linear_regression_rows',
+                                    'logistic_regression_rows',
+                                    'poisson_regression_rows',
+                                    'identity_by_descent'])
+def test_method_without_init_needs_a_card(method):
+    """A method called in a process that never chose a device initialises
+    Hail itself, on the card: without one it raises what
+    `init(device='cuda')` raises and computes nothing on the CPU."""
+    import hail_tpu_torch as hl
+    if torch.cuda.is_available():
+        pytest.skip('this machine has a card: the method would run on it')
+    hl.init(device='cpu', global_seed=0, quiet=True)
+    try:
+        mt = hl.balding_nichols_model(2, 12, 10, n_partitions=1)
+        mt = mt.annotate_cols(y=hl.rand_unif(0, 1, seed=1))
+        mt = mt.annotate_cols(yb=hl.float64(mt.y > 0.5))
+        x = mt.GT.n_alt_alleles()
+    finally:
+        hl.stop()
+    calls = {
+        'linear_regression_rows': lambda: hl.linear_regression_rows(
+            y=mt.y, x=x, covariates=[1.0]),
+        'logistic_regression_rows': lambda: hl.logistic_regression_rows(
+            'wald', y=mt.yb, x=x, covariates=[1.0]),
+        'poisson_regression_rows': lambda: hl.poisson_regression_rows(
+            'wald', y=mt.yb, x=x, covariates=[1.0]),
+        'identity_by_descent': lambda: hl.identity_by_descent(mt),
+    }
+    try:
+        with pytest.raises(RuntimeError, match='is_available'):
+            calls[method]().collect()
+        assert not hl.context.Env.is_initialized()
+    finally:
+        hl.stop()
+
+
+@pytest.mark.parametrize('N,k,P', [(12, 2, 2), (10000, 4, 1), (33, 3, 5),
+                                   (100, 5, 3)])
+def test_exact_consts_carry_the_kernel_layout(N, k, P):
+    """`exact_consts` builds K3's operand once: Wdig transposed, a row of
+    ones after it (the row sums ride along as one more column), zero
+    padding to whole 8-column tiles and 16-byte rows."""
+    from hail_tpu_torch.ops import linreg_i8 as li
+    rng = np.random.default_rng(N)
+    Q = np.linalg.qr(rng.normal(size=(N, k)))[0]
+    Ys = rng.normal(size=(N, P))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    W = li.exact_consts(Q, Ys, Qty, yyp, N - k - 1, 'cpu')[0]
+    assert isinstance(W, li.ExactOperand)
+    Wdig, WT = W
+    C = 7 * (k + P)
+    assert tuple(Wdig.shape) == (N, C)
+    Cp, ldw = (C // 8 + 1) * 8, -(-N // 16) * 16
+    assert WT.dtype == torch.int8 and tuple(WT.shape) == (Cp, ldw)
+    assert WT.is_contiguous() and Cp > C and Cp % 8 == 0
+    want = np.zeros((Cp, ldw), np.int8)
+    want[:C, :N] = Wdig.numpy().T
+    want[C, :N] = 1
+    np.testing.assert_array_equal(WT.numpy(), want)
+    # the reference's constants get the same layout where they enter
+    from hail_tpu_torch import interop
+    W2 = interop.consts_from_reference(Wdig.numpy(), np.ones((7, k + P)),
+                                       Qty, yyp, N - k - 1, 'cpu')[0]
+    np.testing.assert_array_equal(W2.WT.numpy(), want)
+
+
+def test_exact_consts_cached_keep_the_kernel_layout():
+    """A second call with the same operands returns the same constants,
+    kernel layout included: nothing is rebuilt per call or per launch."""
+    from hail_tpu_torch.methods.statgen import _exact_consts_cached
+    rng = np.random.default_rng(5)
+    Q = np.linalg.qr(rng.normal(size=(40, 3)))[0]
+    Ys = rng.normal(size=(40, 1))
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    a = _exact_consts_cached(Q, Ys, Qty, yyp, 36, 'cpu')
+    b = _exact_consts_cached(Q, Ys, Qty, yyp, 36, 'cpu')
+    assert b is a and b[0].WT is a[0].WT
 
 
 def test_exact_consts_cache_keys_on_shape():
@@ -191,4 +279,5 @@ def test_exact_consts_cache_keys_on_shape():
     b = _exact_consts_cached(Q.reshape(6, 4), Ys.reshape(6, 4),
                              Qty.reshape(1, 4), yyp, 9, 'cpu')
     assert b is not a
-    assert tuple(a[0].shape) == (12, 7 * 4) and tuple(b[0].shape) == (6, 7 * 8)
+    assert tuple(a[0].Wdig.shape) == (12, 7 * 4)
+    assert tuple(b[0].Wdig.shape) == (6, 7 * 8)
