@@ -4,15 +4,17 @@
 
 Builds the hand-written CUDA kernels from hail_tpu_torch/csrc, holds each
 against its plain torch version on the card at the shapes of the main path
-(K2 and K3, the tensor-core kernels, at one ragged shape each first), times
-each beside its plain version and its bound on this card, then drives the
+(each at one ragged shape first), times each beside its plain version and
+its bound on this card, then drives the
 public entry points at the benchmark's size:
 `hl.linear_regression_rows` (GWAS, 10,000 samples x 4 x 8,192 variants,
 2% missing, 4 covariates), the f32 int8 path `linreg_stats_i8` over the
 same 32,768 variants, `hl.logistic_regression_rows` (wald over all 32,768
 variants from the GWAS's cached entry pair; lrt, score and firth over one
 partition) and `hl.poisson_regression_rows` (wald, one partition), and
-`hl.identity_by_descent` (1,000 samples x 16,384 variants). It fails
+`hl.identity_by_descent` (1,000 samples x 16,384 variants). One more cold
+GWAS call is split into host packing, host-to-device copy, K4 and the rest.
+It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
 kernel, or when the results disagree with numpy, the exact path or the
@@ -124,12 +126,19 @@ def covariates(cols_np):
 
 
 def timed_ms(fn, reps: int = 10) -> float:
-    """Mean device milliseconds per call, from CUDA events after a warm-up."""
+    """Mean device milliseconds per call, from CUDA events after a warm-up.
+    A wrapper's host side (checks, output allocations, the ctypes call)
+    takes about as long as the faster kernels run, so the launches are
+    queued behind a few milliseconds of other device work (one f32 matrix
+    product) first: the events then time the card working through them
+    back to back, not the host enqueueing them."""
+    blocker = torch.ones((4096, 4096), device='cuda')
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    blocker @ blocker
     start.record()
     for _ in range(reps):
         fn()
@@ -159,24 +168,53 @@ def bound(n_bytes, n_ops=0, ops_per_s=INT8_OPS_PER_S, unit='int8_mma'):
     return dict(bound_ms=t_ops, bound_by='operations', bound_unit=unit)
 
 
-def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
+def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None,
+           **extra):
     log(f'{name}: bound {bnd["bound_ms"]:.4f} ms ({bnd["bound_unit"]}), the '
         f'kernel reaches {bnd["bound_ms"] / ms:.3f} of it')
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                 share_of_bound=bnd['bound_ms'] / ms, library_ms=library_ms,
-                **bnd)
+                **bnd, **extra)
 
 
 def ragged_checks(dev):
-    """K3 and K2 against their plain versions at shapes that are multiples
+    """Each kernel against its plain version at a shape that is a multiple
     of no tile: K3 at R = 1,037, N = 3,001 (rows not 16-byte aligned),
-    C = 70 (two column groups); K2 at 1,003 variants x 333 samples."""
+    C = 70 (two column groups); K4 at the same R and N (rows that start
+    anywhere in a 16-byte piece, padding codes in each row's last byte)
+    from a u8 base off 4 bytes; K1 at the same R and N with KP = 13 (two
+    launches, rows off 4 bytes); K2 at 1,003 variants x 333 samples."""
     from hail_tpu_torch.ops import ibs, linreg_i8 as li
     rng = np.random.default_rng(SEED + 1)
     R, N, C = 1_037, 3_001, 70
     m = (rng.random((R, N)) < MISSING).astype(np.int8)
     g = rng.integers(0, 3, (R, N)).astype(np.int8) * (1 - m)
+    codes = np.where(m == 1, 3, g).astype(np.uint8)
+    codes = np.concatenate([codes, np.zeros((R, -N % 4), np.uint8)], axis=1)
+    u8 = np.zeros((R + 1, codes.shape[1] // 4), np.uint8)
+    for q in range(4):
+        u8[1:] |= codes[:, q::4] << (2 * q)
+    u8 = torch.from_numpy(u8).to(dev)[1:]        # base 751 bytes in
+    got = li.unpack_gt_2bit(u8, N)
+    plain = li._unpack_plain(u8, N)
+    torch.cuda.synchronize()
+    for name, a, b, want in zip(('gz8', 'm8'), got, plain, (g, m)):
+        if not (torch.equal(a, b) and np.array_equal(a.cpu().numpy(), want)):
+            raise AssertionError(f'K4 at the ragged shape: {name} differs')
+    KP = 13
+    G8 = torch.from_numpy(np.where(m == 1, -1, g).astype(np.int8)).to(dev)
+    Wf = torch.from_numpy(rng.normal(size=(N, KP)).astype(np.float32)).to(dev)
+    got = li.linreg_i8_sums(G8, li.f32_operand(Wf))
+    plain = li._sums_ref(G8, Wf)
+    torch.cuda.synchronize()
+    if not torch.equal(got[2], plain[2]):
+        raise AssertionError('K1 at the ragged shape: the row sums differ')
+    for name, a, b, (exact, l2) in zip(('GW', 'MW'), got[:2], plain[:2],
+                                       f32_sum_oracle(G8, Wf)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        f32_sum_check(a, exact, l2, 1e-5, f'K1 ragged {name} vs f64')
+        f32_sum_check(a, b, l2, 1e-4, f'K1 ragged {name} vs plain', atol=2e-5)
     W = rng.integers(-127, 128, (N, C)).astype(np.int8)
     gz8, m8, Wd = (torch.from_numpy(a).to(dev) for a in (g, m, W))
     got = li.exact_pass(gz8, m8, li.exact_operand(Wd))
@@ -198,8 +236,10 @@ def ragged_checks(dev):
     for name, a, b in zip(('ibs0', 'ibs1', 'ibs2'), got, plain):
         if not torch.equal(a, b):
             raise AssertionError(f'K2 at the ragged shape: {name} differs')
-    log(f'ragged shapes: K3 ({R} x {N}, C = {C}) and K2 ({mv} x {n}) '
-        f'bit-equal to their plain versions')
+    log(f'ragged shapes: K3 ({R} x {N}, C = {C}), K4 ({R} x {N}, u8 base off '
+        f'4 bytes) and K2 ({mv} x {n}) bit-equal to their plain versions; K1 '
+        f'({R} x {N}, KP = {KP}) row sums bit-equal, GW and MW within rtol '
+        f'1e-5 + 1e-5 l2 of the f64 product')
 
 
 def int_mm_yardstick(gz8, m8, Wd):
@@ -264,10 +304,27 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
     # bytes: the packed codes in, the int8 pair out; its shift and compare
     # per entry are counted as no operations (far below any rate)
     R = gz8.shape[0]
+    k4_bytes = u8.numel() + 2 * R * n
+    # beside it, never called by the port and no library version of K4 (it
+    # computes nothing): a device copy that moves the same bytes, half of
+    # them read and half written, as the rate a stream reaches on this card
+    src = torch.empty(k4_bytes // 2, dtype=torch.int8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = timed_ms(lambda: dst.copy_(src))
+    del src, dst
+    # and K4's general path: the same rows with one more sample, so that
+    # no row starts on a 16-byte piece and every row ends in padding codes
+    u8r = torch.cat([u8, u8[:, :1]], dim=1)
+    ragged_ms = timed_ms(lambda: li.unpack_gt_2bit(u8r, n + 1))
+    del u8r
+    log(f'K4 moves {k4_bytes / ms / 1e9:.3f} TB/s; Tensor.copy_ of the same '
+        f'{k4_bytes / 1e6:.1f} MB takes {copy_ms:.4f} ms '
+        f'({k4_bytes / copy_ms / 1e9:.3f} TB/s); K4 at {R} x {n + 1} (general '
+        f'path) {ragged_ms:.4f} ms')
     records.append(record(
         'unpack_gt_2bit', 'hail_tpu_torch/csrc/unpack_2bit.cu',
         'hail_tpu/ops/linreg_i8.py:316', err4, ms, plain_ms,
-        bound(u8.numel() + 2 * R * n)))
+        bound(k4_bytes), copy_ms=copy_ms, ragged_ms=ragged_ms))
 
     # K3 on that partition's (gz8, m8) against W = [Q | Ys] planes (C = 35)
     Q, Ys, Qty, yyp, dof = exact_setup(cols_np)
@@ -310,7 +367,8 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
     G8 = torch.from_numpy(g8_of(nalts[0], misses[0])).to(dev)
     W = torch.from_numpy(np.concatenate([Q, Ys], axis=1).astype(np.float32)
                          ).to(dev)
-    sums_k = li.linreg_i8_sums(G8, W)
+    Wf = li.f32_operand(W)           # built once, outside the timed region
+    sums_k = li.linreg_i8_sums(G8, Wf)
     sums_p = li._sums_ref(G8, W)
     torch.cuda.synchronize()
     if not torch.equal(sums_k[2], sums_p[2]):
@@ -324,21 +382,31 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
         f32_sum_check(a, b, l2, 1e-4, f'K1 {name} vs plain', atol=2e-5)
         err1 = max(err1, float(np.abs(a - b).max()))
         notes.append(f'{name} rel err K1 {rel_k:.3g}, plain {rel_p:.3g}')
-    ms, plain_ms = compare_times(lambda: li.linreg_i8_sums(G8, W),
+    ms, plain_ms = compare_times(lambda: li.linreg_i8_sums(G8, Wf),
                                  lambda: li._sums_ref(G8, W))
     log(f'K1 linreg_i8_sums G8 {tuple(G8.shape)} x W {tuple(W.shape)}: row '
         f'sums bit-equal; against the f64 product {"; ".join(notes)}; K1 vs '
         f'plain max abs diff {err1:.3g}; kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms')
+    # beside it, the same G against 8 and 13 columns: KP > 8 reads G once
+    # more per further chunk of eight columns
+    wide_ms = {}
+    for kp in (8, 13):
+        Wk = li.f32_operand(torch.randn((n, kp), device=dev))
+        wide_ms[f'kp{kp}_ms'] = timed_ms(lambda: li.linreg_i8_sums(G8, Wk))
+    log('K1 at ' + ', '.join(f'KP = {k[2:-3]} {v:.4f} ms'
+                             for k, v in wide_ms.items()))
     # bytes: G8 and f32 W in, two (R, KP) and one (R, 3) f32 out;
-    # operations: 2 KP + 3 true-f32 multiply-adds per entry (TF32 is ruled
-    # out), on the CUDA cores
+    # operations: the 2 KP true-f32 multiply-adds per entry of the two
+    # products (TF32 is ruled out), on the CUDA cores; the three row sums
+    # are integer sums of small bytes, counted as no operations (far below
+    # any rate)
     KP = W.shape[1]
     records.append(record(
         'linreg_i8_sums', 'hail_tpu_torch/csrc/linreg_f32.cu',
         'hail_tpu/ops/linreg_i8.py:45', err1, ms, plain_ms,
         bound(R * n + 4 * n * KP + 4 * (2 * R * KP + 3 * R),
-              2 * (2 * KP + 3) * R * n, F32_FLOPS_PER_S, 'f32_fma')))
+              2 * 2 * KP * R * n, F32_FLOPS_PER_S, 'f32_fma'), **wide_ms))
 
     # K2 at the IBD shape: 16,384 variants x 1,000 samples
     het, hom_ref, hom_var, called = (torch.from_numpy(a).to(dev)
@@ -482,8 +550,64 @@ def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
                     warm_launches['hail_linreg_exact_pass']}
     launches = dict(_kernels.launches)
     return (dict(cold=cold, warm=warm, host_materialized=host,
+                 cold_split=cold_split(run_count, n_variants),
                  warm_profile=profile_warm_call(run_count, n_variants)),
             launches, per_call)
+
+
+def cold_split(run_count, n_variants):
+    """One more cold call, the entry cache emptied first, with the steps of
+    `statgen._ship_gt_pair` timed in each partition's thread: host packing
+    (`pack_gt_2bit`), the host-to-device copy of the codes, and K4 with the
+    stream drained before and after it (so its seconds include whatever
+    another partition had queued). The partitions run in parallel threads,
+    so the sums over partitions do not add up to the call; the slowest
+    partition's three steps are on its critical path, and the rest of the
+    call (the host plane, K3, the f64 epilogue, the count) is what is left
+    beside them. Its launches are not among the main path's."""
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.ops import devcache, linreg_i8 as li
+    real = dict(pack=li.pack_gt_2bit, unpack=li.unpack_gt_2bit,
+                ship=statgen._ship_gt_pair)
+    spent = dict(pack=[], unpack=[], ship=[])
+
+    def timed(name, drain):
+        def fn(*a, **kw):
+            if drain:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            if drain:
+                torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)   # append is atomic
+            return out
+        return fn
+
+    li.pack_gt_2bit = timed('pack', False)
+    li.unpack_gt_2bit = timed('unpack', True)
+    statgen._ship_gt_pair = timed('ship', False)
+    try:
+        devcache.clear()
+        total = n_variants / run_count()
+    finally:
+        li.pack_gt_2bit, li.unpack_gt_2bit = real['pack'], real['unpack']
+        statgen._ship_gt_pair = real['ship']
+    n = len(spent['ship'])
+    if not (n and len(spent['pack']) == len(spent['unpack']) == n):
+        raise AssertionError(f'cold split: {n} partitions shipped, '
+                             f'{len(spent["pack"])} packed, '
+                             f'{len(spent["unpack"])} unpacked')
+    pack, k4, ship = (sum(spent[k]) for k in ('pack', 'unpack', 'ship'))
+    out = dict(call_s=total, partitions=n, pack_s=pack, h2d_s=ship - pack - k4,
+               k4_s=k4, slowest_partition_s=max(spent['ship']),
+               rest_s=total - max(spent['ship']))
+    log(f'cold call split: {total:.3f} s; summed over {n} partitions in '
+        f'threads: pack_gt_2bit {pack:.3f} s, host-to-device copy '
+        f'{out["h2d_s"]:.3f} s, K4 with the stream drained around it '
+        f'{k4:.4f} s; the slowest partition\'s three steps '
+        f'{out["slowest_partition_s"]:.3f} s, the rest of the call '
+        f'{out["rest_s"]:.3f} s')
+    return out
 
 
 def profile_warm_call(run_count, n_variants):
@@ -761,6 +885,10 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         # K2's design and the one-bit rate of its bound rest
         for line in _kernels.run_bench('mma_rate'):
             log(f'mma_rate: {line}')
+        # and its rate for f32 FFMAs outside the tensor cores, beside the
+        # data sheet's (F32_FLOPS_PER_S) under K1's operations
+        for line in _kernels.run_bench('ffma_rate'):
+            log(f'ffma_rate: {line}')
 
     hl.init(device=str(dev), global_seed=0, quiet=True)
     # no partition retries: a failure in any partition fails the run
@@ -829,7 +957,9 @@ def main() -> int:
     print(json.dumps({'gwas_variants_per_s': gwas,
                       'glm_variants_per_s': glm, 'glm_seconds': glm_s,
                       'ibd_seconds': ibd}))
-    print(json.dumps({'kernels': [{k: r[k] for k in order} for r in records]}))
+    print(json.dumps({'kernels': [
+        {**{k: r[k] for k in order},
+         **{k: v for k, v in r.items() if k not in order}} for r in records]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))

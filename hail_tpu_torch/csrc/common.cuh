@@ -22,6 +22,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// prmt.b32: byte i of the result is byte (nibble i of `sel`) & 7 of the
+// eight bytes {b, a} (a's are 0-3); where the nibble's bit 3 is set, that
+// byte's sign bit replicated eight times instead.
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b, unsigned sel) {
+  unsigned d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
 // ---- int8 tensor-core and async-copy building blocks (K2, K3) -------------
 //
 // mma.sync.m16n8k32 s8 x s8 -> s32, D = A·B + D, one warp. With g = lane / 4

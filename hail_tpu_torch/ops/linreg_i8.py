@@ -307,11 +307,39 @@ def _sums_ref(G8: torch.Tensor, W: torch.Tensor):
     return gw, mw, st
 
 
-def linreg_i8_sums(G8: torch.Tensor, W: torch.Tensor):
-    """K1: one pass over int8 G8 (R, N), -1 = missing, against f32 W
+class F32Operand(NamedTuple):
+    """The right-hand operand of the f32 pass, made once per call.
+
+    W (N, KP) f32 = [Q | Ys]. WT (KP, ldw) f32: K1's layout of it,
+    WT[:, :N] = W.T and zeros past column N, ldw a multiple of 4 >= N, so
+    that four consecutive samples of a column are one aligned 16-byte
+    piece. `f32_operand` makes the pair; a change to one tensor in place is
+    not seen by the other."""
+    W: torch.Tensor
+    WT: torch.Tensor
+
+
+def f32_operand(W: torch.Tensor) -> F32Operand:
+    """W (N, KP) f32 with its kernel layout, built here once."""
+    N, KP = W.shape
+    WT = torch.zeros((KP, -(-N // 4) * 4), dtype=torch.float32,
+                     device=W.device)
+    WT[:, :N] = W.t()
+    return F32Operand(W, WT)
+
+
+def linreg_i8_sums(G8: torch.Tensor, W: F32Operand):
+    """K1: one pass over int8 G8 (R, N), -1 = missing, against f32 W.W
     (N, KP): (GW, MW) f32 (R, KP) and ST = [ΣM, ΣGz, ΣGz²] f32 (R, 3).
-    The row sums are exact for GT dosages (≤ 2) while N ≤ `_MAX_F32_N`."""
+    The row sums are exact for GT dosages (≤ 2) while N ≤ `_MAX_F32_N`.
+    The kernel reads W.WT and allocates nothing but its outputs. The launch
+    count rises by one per call: for KP > 8 the C entry point launches one
+    kernel per chunk of eight columns."""
+    if not isinstance(W, F32Operand):
+        raise TypeError('linreg_i8_sums: W is an F32Operand (f32_operand(W)), '
+                        'built once by the caller')
     R, N = G8.shape
+    W, WT = W
     KP = W.shape[1]
     if N > _MAX_F32_N:
         raise ValueError(f'f32 linreg: {N} samples exceed the f32 row-sum '
@@ -322,17 +350,15 @@ def linreg_i8_sums(G8: torch.Tensor, W: torch.Tensor):
         raise ValueError('linreg_i8_sums: W has no columns')
     _kernels.check(G8, 'linreg_i8_sums/G8', torch.int8)
     _kernels.check(W, 'linreg_i8_sums/W', torch.float32, (N, KP))
+    _kernels.check(WT, 'linreg_i8_sums/WT', torch.float32,
+                   (KP, -(-N // 4) * 4))
     dev = G8.device
     GW = torch.empty((R, KP), dtype=torch.float32, device=dev)
     MW = torch.empty((R, KP), dtype=torch.float32, device=dev)
     ST = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    # WT (KP, ldw): W transposed and zero-padded to 16-byte rows, so the
-    # kernel reads four samples of a column as one float4
-    ldw = -(-N // 4) * 4
-    WT = torch.zeros((KP, ldw), dtype=torch.float32, device=dev)
-    WT[:, :N] = W.t()
-    _kernels.launch('hail_linreg_i8_sums', G8.data_ptr(), WT.data_ptr(), ldw,
-                    R, N, KP, GW.data_ptr(), MW.data_ptr(), ST.data_ptr())
+    _kernels.launch('hail_linreg_i8_sums', G8.data_ptr(), WT.data_ptr(),
+                    WT.shape[1], R, N, KP, GW.data_ptr(), MW.data_ptr(),
+                    ST.data_ptr())
     return GW, MW, ST
 
 
@@ -375,8 +401,8 @@ def linreg_block_i8(G8: torch.Tensor, W: torch.Tensor, Qty, yyp, d, k: int,
     takes the sums from K1 (`linreg_i8_sums`); False is the explicit plain
     route (`_sums_ref`)."""
     W = W.to(device=G8.device, dtype=torch.float32).contiguous()
-    sums = linreg_i8_sums if use_pallas else _sums_ref
-    GW, MW, ST = sums(G8, W)
+    GW, MW, ST = (linreg_i8_sums(G8, f32_operand(W)) if use_pallas
+                  else _sums_ref(G8, W))
     return _ols_epilogue(GW, MW, ST, 0, G8.shape[1], k, Qty, yyp, d)
 
 

@@ -40,18 +40,60 @@ def dev():
     return torch.device('cuda', 0)
 
 
-@pytest.mark.parametrize('R,N', [(1, 1), (3, 7), (64, 1003), (300, 10000)])
-def test_unpack_matches_plain(dev, R, N):
+def _unpack_against_plain(u8, N):
     from hail_tpu_torch.ops import _kernels, linreg_i8 as li
-    gen = torch.Generator().manual_seed(R * N)
-    u8 = torch.randint(0, 256, (R, -(-N // 4)), dtype=torch.uint8,
-                       generator=gen).to(dev)
     before = _kernels.launches['hail_unpack_gt_2bit']
     gz8, m8 = li.unpack_gt_2bit(u8, N)
     assert _kernels.launches['hail_unpack_gt_2bit'] == before + 1
     gz8_p, m8_p = li._unpack_plain(u8, N)
     torch.cuda.synchronize()
+    assert gz8.dtype == m8.dtype == torch.int8
+    assert gz8.shape == m8.shape == (u8.shape[0], N)
     assert torch.equal(gz8, gz8_p) and torch.equal(m8, m8_p)
+    # and the codes themselves, decoded on the host
+    codes = (u8.cpu().numpy()[:, :, None] >> np.arange(0, 8, 2)) & 3
+    codes = codes.reshape(u8.shape[0], -1)[:, :N]
+    np.testing.assert_array_equal(gz8.cpu().numpy(),
+                                  np.where(codes == 3, 0, codes))
+    np.testing.assert_array_equal(m8.cpu().numpy(), codes == 3)
+
+
+# the flat path: n % 4 == 0 (16 | n, 16 | R n only, a tail of 1-3 bytes);
+# the general path: n % 4 != 0, n < 16, rows off 16 bytes
+@pytest.mark.parametrize('R,N', [(1, 1), (3, 7), (64, 1003), (300, 10000),
+                                 (64, 1024), (5, 16), (7, 12), (3, 4),
+                                 (1, 20), (2050, 528), (33, 10001),
+                                 (9, 15), (40, 17), (4, 2), (1500, 2502),
+                                 (11, 4099)])
+def test_unpack_matches_plain(dev, R, N):
+    gen = torch.Generator().manual_seed(R * N)
+    u8 = torch.randint(0, 256, (R, -(-N // 4)), dtype=torch.uint8,
+                       generator=gen).to(dev)
+    _unpack_against_plain(u8, N)
+
+
+@pytest.mark.parametrize('R,N', [(9, 1000), (9, 40), (6, 1003), (17, 68),
+                                 (5, 10)])
+def test_unpack_row_slice_base(dev, R, N):
+    """u8[1:] of a larger tensor: contiguous, its base n4 bytes into the
+    allocation, so off 4 bytes whenever n4 % 4 != 0."""
+    gen = torch.Generator().manual_seed(R + N)
+    whole = torch.randint(0, 256, (R + 1, -(-N // 4)), dtype=torch.uint8,
+                          generator=gen).to(dev)
+    u8 = whole[1:]
+    assert u8.is_contiguous() and u8.data_ptr() == whole.data_ptr() + u8.shape[1]
+    _unpack_against_plain(u8, N)
+
+
+@pytest.mark.parametrize('N', [64, 1003, 10, 4100])
+def test_unpack_all_and_no_missing_rows(dev, N):
+    gen = torch.Generator().manual_seed(N)
+    u8 = torch.randint(0, 256, (6, -(-N // 4)), dtype=torch.uint8,
+                       generator=gen)
+    u8[1] = 0xFF                                 # every entry missing
+    u8[2] = 0xA4                                 # codes 0, 1, 2, 2: none
+    u8[4] = 0x00
+    _unpack_against_plain(u8.to(dev), N)
 
 
 def test_unpack_rejects_bad_input(dev):
@@ -222,16 +264,44 @@ def test_exact_core_on_the_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize('R,N,KP', [(1, 1, 1), (37, 1003, 5), (100, 3001, 13),
-                                    (9, 2048, 8), (300, 10000, 5)])
+                                    (9, 2048, 8), (300, 10000, 5),
+                                    (33, 1000, 1), (31, 520, 2), (35, 515, 3),
+                                    (5, 4100, 4), (67, 2056, 6), (19, 777, 7),
+                                    (17, 1030, 9), (130, 512, 5),
+                                    (3, 10007, 13), (64, 100, 8)])
 def test_linreg_i8_sums_matches_plain(dev, R, N, KP):
-    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
     rng = np.random.default_rng(R + N + KP)
     g = rng.integers(0, 3, (R, N)).astype(np.int8)
     g[rng.random((R, N)) < 0.1] = -1
+    g[R // 2] = -1                               # an all-missing row
     W = rng.normal(size=(N, KP)).astype(np.float32)
-    G8, Wd = (torch.from_numpy(a).to(dev) for a in (g, W))
+    _sums_against_plain(torch.from_numpy(g).to(dev), g,
+                        torch.from_numpy(W).to(dev), W)
+
+
+@pytest.mark.parametrize('offset,N', [(1, 1000), (2, 1024), (4, 1000),
+                                      (3, 515)])
+def test_linreg_i8_sums_off_aligned_base(dev, offset, N):
+    """G8 that starts `offset` bytes into its allocation: rows off 4 bytes
+    load their words byte by byte."""
+    rng = np.random.default_rng(offset + N)
+    R, KP = 37, 5
+    g = rng.integers(0, 3, (R, N)).astype(np.int8)
+    g[rng.random((R, N)) < 0.1] = -1
+    W = rng.normal(size=(N, KP)).astype(np.float32)
+    buf = torch.zeros(offset + g.size, dtype=torch.int8, device=dev)
+    buf[offset:] = torch.from_numpy(g).to(dev).reshape(-1)
+    G8 = buf[offset:].view(R, N)
+    assert G8.is_contiguous() and G8.data_ptr() % 16 == offset
+    _sums_against_plain(G8, g, torch.from_numpy(W).to(dev), W)
+
+
+def _sums_against_plain(G8, g, Wd, W):
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    (R, N), KP = g.shape, W.shape[1]
+    op = li.f32_operand(Wd)
     before = _kernels.launches['hail_linreg_i8_sums']
-    got = li.linreg_i8_sums(G8, Wd)
+    got = li.linreg_i8_sums(G8, op)
     assert _kernels.launches['hail_linreg_i8_sums'] == before + 1
     plain = li._sums_ref(G8, Wd)
     torch.cuda.synchronize()
@@ -254,12 +324,20 @@ def test_linreg_i8_sums_rejects_bad_input(dev):
     from hail_tpu_torch.ops import linreg_i8 as li
     g = torch.zeros((4, 8), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match='shape'):
-        li.linreg_i8_sums(g, torch.zeros((9, 2), device=dev))
+        li.linreg_i8_sums(g, li.f32_operand(torch.zeros((9, 2), device=dev)))
     with pytest.raises(TypeError):
-        li.linreg_i8_sums(g, torch.zeros((8, 2), dtype=torch.float64,
-                                         device=dev))
+        li.linreg_i8_sums(g, li.F32Operand(
+            torch.zeros((8, 2), dtype=torch.float64, device=dev),
+            torch.zeros((2, 8), device=dev)))
     with pytest.raises(ValueError, match='CUDA tensor'):
-        li.linreg_i8_sums(g, torch.zeros((8, 2)))
+        li.linreg_i8_sums(g, li.f32_operand(torch.zeros((8, 2))))
+    with pytest.raises(TypeError, match='F32Operand'):
+        li.linreg_i8_sums(g, torch.zeros((8, 2), device=dev))
+    # a layout that is not this W's
+    W = torch.zeros((8, 2), device=dev)
+    with pytest.raises(ValueError, match='linreg_i8_sums/WT'):
+        li.linreg_i8_sums(g, li.F32Operand(
+            W, li.f32_operand(torch.zeros((12, 2), device=dev)).WT))
 
 
 def test_linreg_stats_i8_on_the_card_matches_cpu(dev):

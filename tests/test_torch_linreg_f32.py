@@ -63,7 +63,8 @@ def test_sums_ref_matches_reference_sums_ref(R, N, K, P):
     got = port._sums_ref(torch.from_numpy(G8), torch.from_numpy(W))
     _assert_sums(got, *want)
     # the wrapper takes the plain version for CPU tensors
-    _assert_sums(port.linreg_i8_sums(torch.from_numpy(G8), torch.from_numpy(W)),
+    _assert_sums(port.linreg_i8_sums(torch.from_numpy(G8),
+                                     port.f32_operand(torch.from_numpy(W))),
                  *want)
 
 
@@ -80,8 +81,66 @@ def test_sums_match_reference_kernel_interpret(R, N, K, P):
         jnp.asarray(Gp), jnp.asarray(Wp), True))
     st = st.copy()
     st[:, 0] -= Np - N
-    _assert_sums(port.linreg_i8_sums(torch.from_numpy(G8), torch.from_numpy(W)),
+    _assert_sums(port.linreg_i8_sums(torch.from_numpy(G8),
+                                     port.f32_operand(torch.from_numpy(W))),
                  gw, mw, st)
+
+
+@pytest.mark.parametrize('N,KP', [(1, 1), (7, 5), (333, 5), (1030, 13),
+                                  (256, 8), (513, 9), (2, 3)])
+def test_f32_operand_layout(N, KP):
+    """K1 reads WT, not W: WT (KP, ldw) holds W transposed in rows that
+    start 16-byte aligned, with zeros past column N, and the sums taken
+    through it as the kernel takes them (G zero past N, every column of WT
+    up to ldw) are `_sums_ref`'s, the reference's and the port's: the row
+    sums equal, GW and MW at SUM_TOL (the same products, summed over another
+    layout)."""
+    G8, _, _, _, _, _, _ = _make(9, N, seed=N + KP)
+    # columns of about unit norm, as Q's are
+    W = torch.from_numpy((np.random.default_rng(KP).normal(size=(N, KP))
+                          / np.sqrt(N)).astype(np.float32))
+    op = port.f32_operand(W)
+    ldw = -(-N // 4) * 4
+    assert op.W is W
+    assert op.WT.shape == (KP, ldw) and op.WT.dtype == torch.float32
+    assert op.WT.is_contiguous() and op.WT.data_ptr() % 16 == 0
+    assert torch.equal(op.WT[:, :N].t(), W)
+    assert not op.WT[:, N:].any()
+    Gp = np.zeros((9, ldw), np.int8)
+    Gp[:, :N] = G8
+    through_wt = port._sums_ref(torch.from_numpy(Gp), op.WT.t().contiguous())
+    # ... the reference's on the plain layout, and the port's
+    want = [np.asarray(a) for a in ref._sums_ref(jnp.asarray(G8),
+                                                 jnp.asarray(W.numpy()))]
+    _assert_sums(through_wt, *want)
+    _assert_sums(through_wt,
+                 *(a.numpy() for a in port._sums_ref(torch.from_numpy(G8), W)))
+    _assert_sums(port.linreg_i8_sums(torch.from_numpy(G8), op), *want)
+
+
+def test_sums_take_the_operand_not_a_tensor():
+    """The caller builds the operand once; a bare W is refused rather than
+    transposed again on every call."""
+    G8, _, Q, Ys, _, _, _ = _make(4, 16)
+    with pytest.raises(TypeError, match='F32Operand'):
+        port.linreg_i8_sums(torch.from_numpy(G8), torch.from_numpy(_W(Q, Ys)))
+
+
+@pytest.mark.parametrize('R,N,K,P', [(33, 130, 3, 2), (64, 256, 4, 5)])
+def test_stats_i8_match_reference_pallas_interpret(R, N, K, P):
+    """`linreg_stats_i8` builds its operand once and goes through
+    `linreg_block_i8`; held to the reference's block through its Pallas
+    kernel in interpret mode (padded to its tiles by the reference)."""
+    G8, _, Q, Ys, Qty, yyp, dof = _make(R, N, K, P, seed=R)
+    want = _block(ref.linreg_block_i8, G8, Q, Ys, Qty, yyp, dof, jnp.asarray,
+                  use_pallas=True, interpret=True)
+    got = port.linreg_stats_i8(torch.from_numpy(G8), Q, Ys, Qty, yyp, dof)
+    for f, b in zip(('sum_x', 'y_transpose_x', 'beta', 'standard_error',
+                     't_stat'), want):
+        a = got[f]
+        assert np.array_equal(np.isnan(a), np.isnan(b)), f
+        np.testing.assert_allclose(a, b.reshape(a.shape), equal_nan=True,
+                                   err_msg=f, **OLS_TOL)
 
 
 def _block(pkg_fn, G8, Q, Ys, Qty, yyp, dof, to, **kw):
@@ -153,7 +212,7 @@ def test_sums_reject_too_many_samples():
     N = port._MAX_F32_N + 1
     with pytest.raises(ValueError, match='f32 row-sum bound'):
         port.linreg_i8_sums(torch.empty((0, N), dtype=torch.int8),
-                            torch.empty((N, 2), dtype=torch.float32))
+                            port.f32_operand(torch.zeros((N, 2))))
 
 
 def test_true_f32_matmul_restores_setting():
