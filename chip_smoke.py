@@ -14,13 +14,23 @@ variants from the GWAS's cached entry pair; lrt, score and firth over one
 partition) and `hl.poisson_regression_rows` (wald, one partition), and
 `hl.identity_by_descent` (1,000 samples x 16,384 variants). One more cold
 GWAS call is split into host packing, host-to-device copy, K4 and the rest.
+The BlockMatrix tier: `hl.ld_prune` over the GWAS's cached entry pairs
+(r² 0.2, bp_window_size 256, as bench.py runs it) and over 8,192 variants
+with planted LD, its kept set held to a numpy oracle of its three stages;
+`hl.genetic_relatedness_matrix` (the ExactGrm route),
+`hl.realized_relationship_matrix`, `hl.row_correlation` and `hl.ld_matrix`
+over one partition against numpy f64; ExactGrm's strips at bench.py's
+config 5 (50,176 samples x 4,096 variants) against the f64 route; and the
+tier's device ops (torch, not kernels) timed against their bounds.
 It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
-kernel, or when the results disagree with numpy, the exact path or the
-host GLM fits (stats/glmfit).
+kernel, or when the results disagree with numpy, the exact path, the
+host GLM fits (stats/glmfit) or the oracles.
 
-The last lines of stdout: the method rates as JSON, the kernels as JSON
+The last lines of stdout: the method rates as JSON, the device ops as JSON
+(time per launch, launches per method call, bound, share of the bound,
+yardstick), the kernels as JSON
 (time, plain version's time, bound, share of the bound, launches on the
 method paths and per call), the card's name and power limit as nvidia-smi
 reports them, and
@@ -48,12 +58,21 @@ MISSING = 0.02
 CHECK_ROWS = 256
 GLM_CHECK_ROWS = 32
 GLM_MAXIT, GLM_TOL = 25, 1e-8
+LD_R2, LD_WINDOW = 0.2, 256    # bench.py:375: ld_prune(r2=0.2, bp_window_size=256)
+# the planted-LD MatrixTable: 8,192 variants in partitions whose sizes are
+# no multiples of the groups of four copies
+LD_PARTS = (2_047, 2_049, 2_046, 2_050)
+# bench.py's config 5: kinship strips over 50,176 samples x 4,096 variants
+GRM_M, GRM_N, GRM_B, GRM_STRIPS = 4_096, 50_176, 4_096, 4
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+# and f64 on the tensor cores (DMMA), the rate of the f64 products of the
+# BlockMatrix tier
+F64_FLOPS_PER_S = 67e12
 # No peak is published for one-bit operands. The card issues the 1-bit MMA
 # (256 deep) at the rate of the int8 MMA (32 deep), which
 # hail_tpu_torch/csrc/bench/mma_rate.cu measures in this run: eight times
@@ -738,23 +757,46 @@ def _glm_check(batch, host, test, n_rows):
         raise AssertionError(f'{test}: {len(rows)} rows checked')
 
 
-def _timing_device_tier(glm_device, spent):
-    """Wrap the device tier's two entry functions so that each call
-    appends its seconds to `spent` (from the partitions' threads:
-    list.append is atomic); each ends in one device-to-host copy, so its
-    wall time covers its device work. Returns the undo."""
-    saved = {}
-    for name in ('logistic_rows_device', 'poisson_rows_device'):
-        fn = saved[name] = getattr(glm_device, name)
+class Spy:
+    """For one phase, wraps functions of a module and records the host
+    seconds of each call (for a function that ends in a device-to-host
+    copy, its device work too), from any thread: list.append is atomic. A
+    generator function is drained inside the call, so that its seconds are
+    its own. Restores the functions on exit."""
 
-        def timed(*a, _fn=fn, **kw):
-            t0 = time.perf_counter()
-            try:
-                return _fn(*a, **kw)
-            finally:
-                spent.append(time.perf_counter() - t0)
-        setattr(glm_device, name, timed)
-    return lambda: [setattr(glm_device, n, f) for n, f in saved.items()]
+    def __init__(self, module, *names):
+        import inspect
+        self.spent = {n: [] for n in names}
+        self._module = module
+        self._saved = {n: getattr(module, n) for n in names}
+        for n, fn in self._saved.items():
+            drain = inspect.isgeneratorfunction(fn)
+
+            def wrapped(*a, _fn=fn, _n=n, _drain=drain, **kw):
+                t0 = time.perf_counter()
+                try:
+                    out = _fn(*a, **kw)
+                    return iter(list(out)) if _drain else out
+                finally:
+                    self.spent[_n].append(time.perf_counter() - t0)
+            setattr(module, n, wrapped)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self._module, n, fn)
+
+    def clear(self):
+        for v in self.spent.values():
+            v.clear()
+
+    def count(self, *names):
+        return sum(len(self.spent[n]) for n in names or self.spent)
+
+    def total(self, *names):
+        return sum(sum(self.spent[n]) for n in names or self.spent)
 
 
 def phase_glm(hl, mt, n_variants, nalts, misses, cols_np):
@@ -764,15 +806,11 @@ def phase_glm(hl, mt, n_variants, nalts, misses, cols_np):
     each call, its seconds and the seconds of its device-tier calls
     summed over partitions (which run in parallel threads)."""
     from hail_tpu_torch.ops import glm_device
-    spent = []
-    undo = _timing_device_tier(glm_device, spent)
-    try:
-        return _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent)
-    finally:
-        undo()
+    with Spy(glm_device, 'logistic_rows_device', 'poisson_rows_device') as spy:
+        return _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spy)
 
 
-def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent):
+def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spy):
     from hail_tpu_torch.ops import _kernels, devcache
     cov = covariates(cols_np)
     x = np.where(misses[0], 0, nalts[0])[:GLM_CHECK_ROWS].astype(np.float64)
@@ -792,7 +830,7 @@ def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent):
               else hl.poisson_regression_rows)
         y = src.yb if method == 'logistic' else src.yc
         hits = devcache.hits
-        spent.clear()
+        spy.clear()
         t0 = time.perf_counter()
         res = fn(test, y=y, x=src.GT.n_alt_alleles(), covariates=covs)
         batches = res._stage.collect_batches()
@@ -811,10 +849,10 @@ def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spent):
                    test, GLM_CHECK_ROWS)
         rates[f'{method}_{test}'] = rate
         tier[f'{method}_{test}'] = dict(total_s=total,
-                                        device_tier_s=sum(spent))
+                                        device_tier_s=spy.total())
         log(f'{method}_regression_rows {test} {n} variants x {cov.shape[0]} '
             f'samples: {rate:.1f} v/s ({total:.3f} s; device-tier calls '
-            f'{sum(spent):.3f} s summed over {len(spent)} partitions); '
+            f'{spy.total():.3f} s summed over {spy.count()} partitions); '
             f'{GLM_CHECK_ROWS} rows match '
             f'stats/glmfit (iterations and flags equal, rtol 1e-9)')
     launches = dict(_kernels.launches)
@@ -869,6 +907,387 @@ def ibd_check(rows, total, mt, dev):
     return dict(total_s=total, kernel_s=kernel_s, host_s=total - kernel_s)
 
 
+def phase_ld_prune_gwas(hl, mt, n_variants, n_parts):
+    """hl.ld_prune on the GWAS MatrixTable as bench.py runs it (r² 0.2,
+    bp_window_size 256, so W = 256), after the GWAS: every partition's
+    (gz8, m8) pair comes from the device cache and K4 is not launched. The
+    data has no LD, so every variant is kept. Returns its rate, the split
+    of the call into the device ops and the host stages, and the device
+    ops' calls per method call."""
+    from hail_tpu_torch.ops import _kernels, devcache, ldprune
+    _kernels.reset_launch_counts()
+    before = devcache.stats()
+    with Spy(ldprune, 'standardize_rows_device', 'banded_r2_hits',
+             '_band_block') as spy:
+        t0 = time.perf_counter()
+        kept = hl.ld_prune(mt.GT, r2=LD_R2, bp_window_size=LD_WINDOW
+                           )._force_count()
+        total = time.perf_counter() - t0
+    after = devcache.stats()
+    if after['hits'] - before['hits'] != n_parts or \
+            after['misses'] != before['misses']:
+        raise AssertionError(f'ld_prune missed the device cache: {before} -> '
+                             f'{after}')
+    if _kernels.launches['hail_unpack_gt_2bit']:
+        raise AssertionError('ld_prune after the GWAS decoded GT again (K4 '
+                             'launched)')
+    if kept != n_variants:
+        raise AssertionError(f'ld_prune kept {kept} of {n_variants} variants '
+                             f'of data without LD')
+    std_s = spy.total('standardize_rows_device')
+    band_s = spy.total('banded_r2_hits')
+    out = dict(variants_per_s=n_variants / total, call_s=total,
+               standardize_s=std_s, banded_r2_hits_s=band_s,
+               host_s=total - std_s - band_s, kept=kept)
+    log(f'ld_prune {n_variants} variants x {mt.count_cols()} samples (r2 '
+        f'{LD_R2}, bp_window_size {LD_WINDOW}): {out["variants_per_s"]:.1f} '
+        f'v/s ({total:.3f} s: standardize_rows_device {std_s:.4f} s over '
+        f'{spy.count("standardize_rows_device")} calls, banded_r2_hits '
+        f'{band_s:.4f} s with {spy.count("_band_block")} _band_block calls '
+        f'and its copy to the host, host stages {out["host_s"]:.3f} s); '
+        f'{kept} kept; devcache hit on all {n_parts} partitions, K4 not '
+        f'launched')
+    return out, {n: spy.count(n) for n in spy.spent}
+
+
+def build_ld_mt(hl, rng, n_samples, part_sizes):
+    """A MatrixTable of packed GT calls with planted LD: of every four
+    variants, the last three copy their predecessor with 10% of the calls
+    drawn again; 2% missing; consecutive positions on one contig. The
+    partitions' sizes are no multiples of four, so groups of copies cross
+    partition boundaries and stages 2 and 3 of ld_prune find edges.
+    Returns (mt, nalt, missing, partition of each variant)."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.call import pack_diploid
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ir.columns import Batch, LocusColumn, ObjectColumn, PrimitiveColumn
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    m = sum(part_sizes)
+    nalt = rng.integers(0, 3, (m, n_samples)).astype(np.int32)
+    for i in range(m):
+        if i % 4:
+            redraw = rng.random(n_samples) < 0.1
+            nalt[i] = np.where(redraw, nalt[i], nalt[i - 1])
+    miss = rng.random((m, n_samples)) < MISSING
+    rg = default_reference()
+    mbs, lo = [], 0
+    for r in part_sizes:
+        sl = slice(lo, lo + r)
+        alleles = np.empty(r, dtype=object)
+        alleles[:] = [['A', 'T']] * r
+        rows = Batch({
+            'locus': LocusColumn(ht.tlocus(rg), np.zeros(r, np.int32),
+                                 np.arange(lo, lo + r, dtype=np.int32) + 10_000),
+            'alleles': ObjectColumn(ht.tarray(ht.tstr), alleles)}, r)
+        gt = pack_diploid((nalt[sl] == 2).astype(np.int32),
+                          (nalt[sl] >= 1).astype(np.int32))
+        mbs.append(MatrixBatch(rows, {'GT': PrimitiveColumn(ht.tcall, gt,
+                                                            miss[sl])}))
+        lo += r
+    cols = Batch({'s': ObjectColumn(ht.tstr, np.asarray(
+        [f's{i}' for i in range(n_samples)], object))}, n_samples)
+    mt = MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), cols, ['locus', 'alleles'], ['s'],
+        ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr)),
+        ht.tstruct(s=ht.tstr), ht.tstruct(GT=ht.tcall), mbs))
+    part = np.repeat(np.arange(len(part_sizes)), part_sizes)
+    return mt, nalt, miss, part
+
+
+def ld_prune_oracle(nalt, miss, part, r2, w):
+    """The three stages of ld_prune in numpy f64, for keys that are unique
+    and positions that are consecutive on one contig (so each variant's
+    window is the w variants before it): (1) within each partition, a
+    variant survives unless an earlier survivor of its window has
+    r² >= r2; (2) edges between survivors of any partition in a window
+    with r² >= r2; (3) repeatedly remove the node of most remaining edges,
+    a tie going to the lower minor allele frequency, in order of first
+    appearance. Asserts that no r² lies within 1e-9 of r2. Returns the
+    kept mask and the count of what each stage did."""
+    G = nalt.astype(np.float64)
+    cnt = (~miss).sum(axis=1)
+    mean = np.where(miss, 0, G).sum(axis=1) / np.maximum(cnt, 1)
+    c = np.where(miss, mean[:, None], G) - mean[:, None]
+    ss = np.sqrt((c * c).sum(axis=1))
+    ok = ss > 0
+    Z = np.where(ok[:, None], c / np.where(ok, ss, 1)[:, None], 0.0)
+    del G, c
+    m = len(Z)
+    r = np.zeros((m, w))                     # r[i, k]: pair (i, i - w + k)
+    for s in range(0, m, 1024):
+        e = min(s + 1024, m)
+        lo = max(0, s - w)
+        cb = Z[s:e] @ Z[lo:e].T
+        j = np.arange(s, e)[:, None] - w + np.arange(w)[None, :]
+        r[s:e] = np.where(j >= 0, np.take_along_axis(
+            cb, np.clip(j - lo, 0, None), axis=1), 0.0)
+    valid = (np.arange(m)[:, None] - w + np.arange(w)[None, :]) >= 0
+    gap = np.abs(r[valid] ** 2 - r2).min()
+    if gap <= 1e-9:
+        raise AssertionError(f'an r² lies within {gap:.3g} of {r2}')
+    hit = valid & (r * r >= r2)
+    survive = np.zeros(m, bool)
+    for i in range(m):
+        js = i - w + np.flatnonzero(hit[i])
+        if ok[i] and not (survive[js] & (part[js] == part[i])).any():
+            survive[i] = True
+    edges = [(int(j), int(i)) for i in np.flatnonzero(survive)
+             for j in i - w + np.flatnonzero(hit[i]) if survive[j]]
+    nbrs = {}
+    for j, i in edges:
+        nbrs.setdefault(j, set()).add(i)
+        nbrs.setdefault(i, set()).add(j)
+    twice_maf = np.minimum(mean, 2.0 - mean)
+    removed = set()
+    while True:
+        deg = {v: len(n - removed) for v, n in nbrs.items() if v not in removed}
+        best = None
+        for v, d in deg.items():
+            if d and (best is None or d > deg[best] or (
+                    d == deg[best] and twice_maf[v] < twice_maf[best])):
+                best = v
+        if best is None:
+            break
+        removed.add(best)
+    keep = survive.copy()
+    keep[list(removed)] = False
+    return keep, dict(eligible=int(ok.sum()), stage1_pruned=int(ok.sum()
+                      - survive.sum()), stage2_edges=len(edges),
+                      stage3_removed=len(removed), kept=int(keep.sum()),
+                      r2_gap=float(gap))
+
+
+def phase_ld_prune_planted(hl, rng, n_samples):
+    """hl.ld_prune on a MatrixTable with planted LD (a cold call: K4 decodes
+    each partition), its kept keys held equal to ld_prune_oracle."""
+    from hail_tpu_torch.ops import _kernels
+    mt, nalt, miss, part = build_ld_mt(hl, rng, n_samples, LD_PARTS)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = hl.ld_prune(mt.GT, r2=LD_R2, bp_window_size=LD_WINDOW).collect()
+    total = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    keep, stages = ld_prune_oracle(nalt, miss, part, LD_R2, LD_WINDOW)
+    want = np.flatnonzero(keep) + 10_000
+    got_pos = np.asarray([r.locus.position for r in got])
+    if not np.array_equal(got_pos, want):
+        raise AssertionError(f'ld_prune kept {len(got_pos)} variants, the '
+                             f'oracle {len(want)}; first difference at '
+                             f'{np.flatnonzero(got_pos[:len(want)] != want[:len(got_pos)])[:1]}')
+    if not (stages['stage1_pruned'] and stages['stage2_edges']
+            and stages['stage3_removed']):
+        raise AssertionError(f'not every stage of ld_prune acted: {stages}')
+    log(f'ld_prune with planted LD, {len(nalt)} variants x {n_samples} '
+        f'samples in partitions of {LD_PARTS}: {total:.3f} s (cold), kept '
+        f'set equal to the numpy f64 oracle of the three stages ({stages}; '
+        f'no r² within 1e-9 of {LD_R2})')
+    return dict(call_s=total, **stages), launches
+
+
+def f64_check(got, want, what, rtol=1e-10, atol=1e-12):
+    """|got - want| <= rtol |want| + atol: two f64 sums of the same n terms
+    in other orders differ by up to n·eps times the sum of the terms'
+    sizes, which is at most about 1 for these normalized rows (1.1e-12 at
+    n = 10,000): that is the atol."""
+    err = np.abs(got - want)
+    bad = err > rtol * np.abs(want) + atol
+    if got.shape != want.shape or not np.isfinite(got).all() or bad.any():
+        raise AssertionError(f'{what}: shape {got.shape} vs {want.shape}, '
+                             f'{int(bad.sum())} entries beyond rtol {rtol} + '
+                             f'atol {atol}, max abs err {err.max():.3g}')
+    return float(err.max())
+
+
+def phase_blockmatrix_methods(hl, dev, mt, nalt, miss):
+    """genetic_relatedness_matrix (the ExactGrm route), realized_relationship
+    _matrix, row_correlation and ld_matrix over one partition of the GWAS
+    MatrixTable, each against numpy f64: the GRM at max abs 1e-12 (the
+    oracle of tests/test_grm_i8.py), the others at rtol 1e-10 (f64_check).
+    Returns their seconds (each with the seconds of its host evaluation of
+    the entry expression, `statgen._entry_expr_to_blocks`) and errors, and
+    the GRM's _grm_strip calls."""
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.ops import grm
+    G = nalt.astype(np.float64)
+    cnt = (~miss).sum(axis=1)
+    mean = np.where(miss, 0, G).sum(axis=1) / np.maximum(cnt, 1)
+    c = np.where(miss, mean[:, None], G) - mean[:, None]
+    del G
+    out = {}
+
+    def call(name, fn):
+        with Spy(statgen, '_entry_expr_to_blocks') as ev:
+            t0 = time.perf_counter()
+            bm = fn()
+            torch.cuda.synchronize()
+            out[f'{name}_s'] = time.perf_counter() - t0
+        out[f'{name}_entry_eval_s'] = ev.total()
+        if bm._data.dtype != torch.float64 or bm._data.device.type != dev.type:
+            raise AssertionError(f'{name}: {bm._data.dtype} on '
+                                 f'{bm._data.device}')
+        return bm.to_numpy()
+
+    with Spy(grm, '_grm_strip') as spy:
+        K = call('grm', lambda: hl.genetic_relatedness_matrix(mt.GT))
+    if dev.type == 'cuda' and not spy.count():
+        raise AssertionError('the GRM did not take the ExactGrm route')
+    p = mean / 2
+    d = np.sqrt(2 * p * (1 - p))
+    ok = (d > 0) & (cnt > 0)
+    Z = np.where(ok[:, None], c / np.where(ok, d, 1)[:, None], 0.0)
+    err = np.abs(K - Z.T @ Z / max(int(ok.sum()), 1)).max()
+    if not err <= 1e-12:
+        raise AssertionError(f'GRM: max abs err {err:.3g} from the f64 oracle')
+    out['grm_max_abs_err'] = float(err)
+    del K
+    n = c.shape[1]
+    ss = (c * c).sum(axis=1)
+    Z = np.where(ss[:, None] > 0, c / np.sqrt(np.where(ss > 0, ss, 1))[:, None],
+                 0.0)
+    W = Z * np.sqrt(n)
+    K = call('rrm', lambda: hl.realized_relationship_matrix(mt.GT))
+    out['rrm_max_abs_err'] = f64_check(K, W.T @ W / int((ss > 0).sum()), 'RRM')
+    del K, W
+    x = mt.GT.n_alt_alleles()
+    corr = Z @ Z.T
+    R = call('row_correlation', lambda: hl.row_correlation(x))
+    out['row_correlation_max_abs_err'] = f64_check(R, corr, 'row_correlation')
+    R = call('ld_matrix', lambda: hl.ld_matrix(x, mt.locus, radius=LD_WINDOW))
+    i = np.arange(len(corr))
+    # consecutive positions on one contig: the window is |i - j| <= radius
+    inside = np.abs(i[:, None] - i[None, :]) <= LD_WINDOW
+    out['ld_matrix_max_abs_err'] = f64_check(R, np.where(inside, corr, 0.0),
+                                             'ld_matrix')
+    if (R[~inside] != 0).any():
+        raise AssertionError('ld_matrix: entries outside the window')
+    log(f'BlockMatrix methods over {nalt.shape[0]} variants x {n} samples: '
+        + ', '.join(f'{k} {v:.3f}' if k.endswith('_s') else f'{k} {v:.3g}'
+                    for k, v in out.items())
+        + f'; GRM by ExactGrm in {spy.count()} strips, within '
+        f'1e-12 of the numpy f64 oracle; the others within rtol 1e-10')
+    return out, spy.count()
+
+
+def phase_grm_strips(dev):
+    """ExactGrm at bench.py's config 5: random codes (25% missing) made on
+    the card from a seed, as bench.py:386-395 makes them. Times strips of
+    GRM_B columns (CUDA events) and estimates the full kinship's seconds as
+    bench.py does; holds the first strip within 1e-12 of the f64 route
+    (Zᵀ·Z_strip / m by torch.matmul in f64), and times that route beside
+    it. Returns the device-op record of _grm_strip."""
+    from hail_tpu_torch.ops.grm import ExactGrm, _plane_product
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    codes = torch.randint(0, 4, (GRM_M, GRM_N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    m8 = (codes == 3).to(torch.int8)
+    gz8 = torch.where(codes == 3, 0, codes)
+    del codes
+    cnt = (1 - m8.to(torch.int32)).sum(dim=1).cpu().numpy()
+    s = gz8.to(torch.int32).sum(dim=1).cpu().numpy()
+    p = s / np.maximum(2 * cnt, 1)
+    ok = 2 * p * (1 - p) > 0
+    g = ExactGrm(gz8, m8, p, ok)
+    strip0 = g.strip(0, GRM_B)
+    dfl = torch.from_numpy(np.sqrt(2 * p * (1 - p))).to(dev)
+    okd = torch.from_numpy(ok).to(dev)
+    Z = torch.where(okd[:, None] & (m8 == 0),
+                    (gz8.to(torch.float64) - torch.from_numpy(2 * p).to(dev)[:, None])
+                    / torch.where(okd, dfl, 1.0)[:, None], 0.0)
+    del gz8, m8
+    Zs = Z[:, :GRM_B].contiguous()
+    ref = (Z.T @ Zs) / g.m_used
+    err = float((strip0 - ref).abs().max())
+    if not err <= 1e-12:
+        raise AssertionError(f'ExactGrm strip: max abs err {err:.3g} from the '
+                             f'f64 route')
+    del strip0, ref
+    f64_ms = timed_ms(lambda: Z.T @ Zs, reps=4)
+    del Zs
+    # one of a strip's 63 steps: the int8 product (torch._int_mm, its right
+    # operand column-major as _plane_product passes it, and row-major as a
+    # contiguous (m, B) operand would be) and its f64 accumulation
+    rows = g.ct[:GRM_B]
+    q = g._planes[0][0]
+    prod = _plane_product(g.ct, rows, q)
+    row_major = (rows * q).T.contiguous()
+    acc = torch.zeros(prod.shape, dtype=torch.float64, device=dev)
+    step = dict(product_ms=timed_ms(lambda: _plane_product(g.ct, rows, q),
+                                    reps=5),
+                product_row_major_ms=timed_ms(
+                    lambda: torch._int_mm(g.ct, row_major), reps=5),
+                accumulate_ms=timed_ms(lambda: acc.add_(prod, alpha=1e-3),
+                                       reps=5))
+    del prod, row_major, acc
+    strip_ms = [timed_ms(lambda lo=lo: g.strip(lo, lo + GRM_B), reps=1)
+                for lo in range(GRM_B, (GRM_STRIPS + 1) * GRM_B, GRM_B)]
+    ms = sum(strip_ms) / GRM_STRIPS
+    full_s = GRM_N / GRM_B * ms / 1e3
+    # operations: what the function needs, Zᵀ·Z_strip in f64 (2 n B m);
+    # bytes: the three int8 indicator matrices in, the f64 strip out
+    n_ops = 2 * GRM_N * GRM_B * GRM_M
+    bnd = bound(3 * GRM_M * GRM_N + 8 * GRM_N * GRM_B, n_ops,
+                F64_FLOPS_PER_S, 'f64_mma')
+    log(f'ExactGrm {GRM_N} samples x {GRM_M} variants, strips of {GRM_B}: '
+        f'{", ".join(f"{t:.2f}" for t in strip_ms)} ms per strip '
+        f'({2 * GRM_N * GRM_B * GRM_M / ms / 1e9:.2f} TFLOP/s of useful f64), '
+        f'full {GRM_N} x {GRM_N} kinship in ~{full_s:.2f} s; the f64 route '
+        f'(torch.matmul f64) {f64_ms:.2f} ms per strip; first strip within '
+        f'{err:.3g} of it; bound {bnd["bound_ms"]:.2f} ms ({bnd["bound_by"]}); '
+        f'one of its 63 steps: the int8 product {step["product_ms"]:.3f} ms '
+        f'(with a row-major right operand {step["product_row_major_ms"]:.3f} '
+        f'ms), its f64 accumulation {step["accumulate_ms"]:.3f} ms')
+    del Z
+    return dict(name='_grm_strip', source='hail_tpu_torch/ops/grm.py',
+                replaces='hail_tpu/ops/grm.py:65',
+                shape=f'{GRM_N} samples x {GRM_M} variants, strip {GRM_B}',
+                ms=ms, strip_ms=strip_ms, full_kinship_s_est=full_s,
+                max_abs_err=err, **bnd, share_of_bound=bnd['bound_ms'] / ms,
+                yardstick='torch.matmul f64 (the f64 route)',
+                yardstick_ms=f64_ms, **step)
+
+
+def ld_device_ops(dev, gz8, m8):
+    """standardize_rows_device and _band_block at the main path's shapes
+    (one partition's pair, 8,192 x 10,000; a block of 2,048 rows against a
+    window of 256), timed with CUDA events. standardize_rows_device ends in
+    a small device-to-host copy, so its events also hold the host's gap
+    between two calls. Returns their device-op records."""
+    from hail_tpu_torch.ops import ldprune
+    R, n = gz8.shape
+    std_ms = timed_ms(lambda: ldprune.standardize_rows_device(gz8, m8), reps=5)
+    z, _, _ = ldprune.standardize_rows_device(gz8, m8)
+    block, w = 2048, LD_WINDOW
+    zpad = torch.cat([z.new_zeros((w, n)), z], dim=0)
+    s = block                                      # an inner block
+    band_ms = timed_ms(lambda: ldprune._band_block(zpad, s, w, block, LD_R2))
+    zb, zw = zpad[s + w:s + w + block], zpad[s:s + block + w]
+    prod_ms = timed_ms(lambda: zb @ zw.T)
+    del z, zpad
+    # standardize: the int8 pair in, Z out in f64; its arithmetic is far
+    # below any rate
+    std = bound(10 * R * n)
+    # the band: the r² it needs, 2 w n f64 operations per row of the block,
+    # against the rows read once and the packed bits written
+    band = bound(8 * (block + w) * n + block * (w // 8), 2 * block * w * n,
+                 F64_FLOPS_PER_S, 'f64_mma')
+    log(f'standardize_rows_device {R} x {n}: {std_ms:.4f} ms (bound '
+        f'{std["bound_ms"]:.4f}); _band_block block {block}, W {w}: '
+        f'{band_ms:.4f} ms, its product alone {prod_ms:.4f} ms (bound '
+        f'{band["bound_ms"]:.4f}, the r² it needs)')
+    return [
+        dict(name='standardize_rows_device', source='hail_tpu_torch/ops/ldprune.py',
+             replaces='hail_tpu/ops/ldprune.py:79', shape=f'{R} x {n}',
+             ms=std_ms, **std, share_of_bound=std['bound_ms'] / std_ms,
+             yardstick=None, yardstick_ms=None),
+        dict(name='_band_block', source='hail_tpu_torch/ops/ldprune.py',
+             replaces='hail_tpu/ops/ldprune.py:30',
+             shape=f'{n} samples, block {block}, W = {w}', ms=band_ms, **band,
+             share_of_bound=band['bound_ms'] / band_ms,
+             yardstick='its product alone (torch.matmul f64)',
+             yardstick_ms=prod_ms)]
+
+
 def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
     import hail_tpu_torch as hl
@@ -912,6 +1331,22 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
                                                       cols_np)
     glm, glm_s, n_glm = phase_glm(hl, mt, n_parts * block_r, nalts, misses,
                                   cols_np)
+    # the BlockMatrix tier: ld_prune over the GWAS's cached pairs, then with
+    # planted LD; the GRM and the other BlockMatrix methods over one
+    # partition; ExactGrm's strips at bench.py's config 5
+    ld, ld_calls = phase_ld_prune_gwas(hl, mt, n_parts * block_r, n_parts)
+    ld['planted'], n_ld = phase_ld_prune_planted(hl, rng, n_samples)
+    bm_methods, grm_strips = phase_blockmatrix_methods(
+        hl, dev, mt._filter_partitions([0]), nalts[0], misses[0])
+    pair = li_pair(dev, nalts[0], misses[0])
+    device_ops = ld_device_ops(dev, *pair) + [phase_grm_strips(dev)]
+    del pair
+    per_launch = {'standardize_rows_device':
+                      ld_calls['standardize_rows_device'],
+                  '_band_block': ld_calls['_band_block'],
+                  '_grm_strip': grm_strips}
+    for op in device_ops:
+        op['launches_per_call'] = per_launch[op['name']]
     ibd_rows, ibd_total, n_ibd = ibd_method(hl, mt_ibd)
     ibd = ibd_check(ibd_rows, ibd_total, mt_ibd, dev)
     per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
@@ -922,7 +1357,8 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
              'ibs_counts': 'hail_ibs_counts'}
     for rec in records:
         c_name = names[rec['name']]
-        rec['launches'] = sum(n[c_name] for n in (n_gwas, n_f32, n_glm, n_ibd))
+        rec['launches'] = sum(n[c_name] for n in (n_gwas, n_f32, n_glm, n_ld,
+                                                  n_ibd))
         rec['launches_per_call'] = per_call[c_name]
         if not rec['launches']:
             raise AssertionError(f'the main path never launched {rec["name"]}')
@@ -936,7 +1372,17 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     if loaded:
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
-    return records, gwas, glm, glm_s, ibd
+    return records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods
+
+
+def li_pair(dev, nalt, miss):
+    """One partition's (gz8, m8) pair on the card, as K4 makes it."""
+    from hail_tpu_torch.genetics.call import pack_diploid
+    from hail_tpu_torch.ops import linreg_i8 as li
+    packed = pack_diploid((nalt == 2).astype(np.int32),
+                          (nalt >= 1).astype(np.int32))
+    u8 = torch.from_numpy(li.pack_gt_2bit(packed, miss)).to(dev)
+    return li.unpack_gt_2bit(u8, nalt.shape[1])
 
 
 def main() -> int:
@@ -950,13 +1396,23 @@ def main() -> int:
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    records, gwas, glm, glm_s, ibd = run(dev)
+    t0 = time.perf_counter()
+    records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods = run(dev)
+    log(f'run: {time.perf_counter() - t0:.1f} s, the kernels\' build included')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
              'bound_by', 'bound_unit', 'share_of_bound', 'library_ms')
     print(json.dumps({'gwas_variants_per_s': gwas,
                       'glm_variants_per_s': glm, 'glm_seconds': glm_s,
-                      'ibd_seconds': ibd}))
+                      'ibd_seconds': ibd, 'ld_prune': ld,
+                      'blockmatrix_methods': bm_methods}))
+    op_order = ('name', 'source', 'replaces', 'shape', 'launches_per_call',
+                'ms', 'bound_ms', 'bound_by', 'bound_unit', 'share_of_bound',
+                'yardstick', 'yardstick_ms')
+    print(json.dumps({'device_ops': [
+        {**{k: r[k] for k in op_order},
+         **{k: v for k, v in r.items() if k not in op_order}}
+        for r in device_ops]}))
     print(json.dumps({'kernels': [
         {**{k: r[k] for k in order},
          **{k: v for k, v in r.items() if k not in order}} for r in records]}))

@@ -103,6 +103,7 @@ _zip_streams = _F._zip_streams
 _zip_join_producers = _F._zip_join_producers
 _sort_by = _F._sort_by
 _values_similar = _F._values_similar
+_locus_windows_per_contig = _F._locus_windows_per_contig
 
 from .expr import aggregators as agg
 from .expr import scans as scan
@@ -115,6 +116,7 @@ from .utils.hadoop import (hadoop_open, hadoop_copy, hadoop_exists,
                            TemporaryDirectory, TemporaryFilename)
 from . import stats
 from . import fs
+from . import linalg
 
 
 def reset_global_randomness():

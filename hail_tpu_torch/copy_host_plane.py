@@ -33,6 +33,7 @@ COPIED = [
     'stats/__init__.py', 'stats/rmath.py', 'stats/_fdlibm.py',
     'stats/toms708.py', 'stats/exact_tests.py', 'stats/hwe.py',
     'stats/genchisq.py', 'stats/glmfit.py',
+    'linalg/utils/__init__.py', 'linalg/utils/misc.py',
     'resources/reference',
 ]
 

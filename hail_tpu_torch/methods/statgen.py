@@ -7,12 +7,16 @@ integer x, the f64 path (ops/regression.py) for float x and weights;
 `logistic_regression_rows` and `poisson_regression_rows`, batched
 per-variant fits on the device (ops/glm_device.py) over the same cached
 GT entry pair, with the host-faithful stats/glmfit.py loop as the
-fallback and oracle; and `balding_nichols_model`, host code on the
-Threefry stream of ir/random.
+fallback and oracle; the BlockMatrix tier (`ld_prune` over the same cached
+pair, `genetic_relatedness_matrix` by the exact int8 GRM (ops/grm.py) on
+the card, `realized_relationship_matrix`, `row_correlation`, `ld_matrix`);
+and `balding_nichols_model`, host code on the Threefry stream of
+ir/random.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -188,7 +192,8 @@ def _sample_fp(idx: np.ndarray, all_keep: bool) -> int:
 
 def _glm_gt_pair(mb, gt_field: Optional[str], idx: np.ndarray, device):
     """The partition's cached (gz8, m8) pair for x = GT.n_alt_alleles() over
-    the kept samples `idx`, under linreg's key; None for any other x."""
+    the kept samples `idx`, under linreg's key (the GLMs and ld_prune read
+    it); None for any other x."""
     from ..ops import devcache
     col = mb.entries.get(gt_field) if gt_field else None
     if not (isinstance(col, C.PrimitiveColumn) and col.typ == ht.tcall):
@@ -1325,6 +1330,300 @@ def poisson_regression_rows(test: str, y, x, covariates, pass_through=(),
         entry_req=None if req is None else req['g'],
         row_req=None if req is None else req['va'],
         globals_batch=g_batch)
+
+
+# ---------------------------------------------------------------------------
+# kinship / LD (BlockMatrix tier)
+# ---------------------------------------------------------------------------
+
+def _normalized_genotype_matrix(call_expr) -> Tuple[np.ndarray, int]:
+    """(variants × samples) matrix standardized per hail's GRM normalization:
+    (g - 2p) / sqrt(2p(1-p)m), mean-imputed."""
+    e = to_expr(call_expr)
+    ne = e.n_alt_alleles() if e.dtype == ht.tcall else e
+    G, M = _entry_expr_to_blocks(ne)
+    cnt = (~M).sum(axis=1)
+    s = np.where(M, 0, G).sum(axis=1)
+    mean = np.where(cnt > 0, s / np.maximum(cnt, 1), 0.0)
+    G = np.where(M, mean[:, None], G)
+    p = mean / 2
+    denom = np.sqrt(2 * p * (1 - p))
+    ok = (denom > 0) & (cnt > 0)
+    Z = np.where(ok[:, None], (G - mean[:, None]) / np.where(ok, denom, 1)[:, None], 0.0)
+    m_used = int(ok.sum())
+    return Z, m_used
+
+
+def _exact_grm(call_expr, device: torch.device) -> torch.Tensor:
+    """The kinship by the exact int8 digit-plane products (ops/grm.py
+    ExactGrm, the reference's accelerator route at
+    hail_tpu/methods/statgen.py:2046), its strips written into one
+    preallocated (n, n) f64 tensor on `device`."""
+    from ..ops.grm import ExactGrm
+    e = to_expr(call_expr)
+    ne = e.n_alt_alleles() if e.dtype == ht.tcall else e
+    G, M = _entry_expr_to_blocks(ne)
+    M = np.asarray(M, bool)
+    cnt = (~M).sum(axis=1)
+    s = np.where(M, 0, G).sum(axis=1)
+    mean = np.where(cnt > 0, s / np.maximum(cnt, 1), 0.0)
+    p = mean / 2
+    ok = (2 * p * (1 - p) > 0) & (cnt > 0)
+    g = ExactGrm(torch.from_numpy(np.where(M, 0, G).astype(np.int8)).to(device),
+                 torch.from_numpy(M.astype(np.int8)).to(device), p, ok)
+    K = torch.empty((g.n, g.n), dtype=torch.float64, device=device)
+    for lo, hi, strip in g.strips(min(g.n, 8192)):
+        K[:, lo:hi] = strip
+    return K
+
+
+def genetic_relatedness_matrix(call_expr) -> 'BlockMatrix':
+    """GRM: K = Z^T Z / m (reference methods/statgen
+    genetic_relatedness_matrix).
+
+    On the card the f64 normalized matrix is never made: the kinship comes
+    from the exact int8 digit-plane products (`_exact_grm`, ≤1e-12 of the
+    f64 oracle). With `hl.init(device='cpu')` it is the f64 BlockMatrix
+    product, the reference's route on the CPU. The session's device picks
+    the route; neither stands in for the other when it fails."""
+    from ..linalg import BlockMatrix
+    device = Env.device()
+    if device.type == 'cuda':
+        return BlockMatrix(_exact_grm(call_expr, device))
+    Z, m = _normalized_genotype_matrix(call_expr)
+    bm = BlockMatrix.from_numpy(Z)
+    return (bm.T @ bm) * (1.0 / max(m, 1))
+
+
+def realized_relationship_matrix(call_expr) -> 'BlockMatrix':
+    """RRM: rows standardized to zero mean/unit variance (reference
+    realized_relationship_matrix)."""
+    from ..linalg import BlockMatrix
+    e = to_expr(call_expr)
+    ne = e.n_alt_alleles() if e.dtype == ht.tcall else e
+    G, M = _entry_expr_to_blocks(ne)
+    cnt = (~M).sum(axis=1)
+    s = np.where(M, 0, G).sum(axis=1)
+    mean = np.where(cnt > 0, s / np.maximum(cnt, 1), 0.0)
+    G = np.where(M, mean[:, None], G)
+    centered = G - mean[:, None]
+    ss = (centered * centered).sum(axis=1)
+    ok = ss > 0
+    n = G.shape[1]
+    W = np.where(ok[:, None], centered / np.sqrt(np.where(ok, ss, 1))[:, None], 0.0) * math.sqrt(n)
+    m = int(ok.sum())
+    if m == 0:
+        from ..utils.misc import FatalError
+        raise FatalError(
+            'Cannot run RRM: found 0 variants after filtering out constant rows')
+    bm = BlockMatrix.from_numpy(W)
+    return (bm.T @ bm) * (1.0 / m)
+
+
+def row_correlation(entry_expr, block_size: Optional[int] = None) -> 'BlockMatrix':
+    """Pearson correlation between all row pairs (reference row_correlation)."""
+    from ..linalg import BlockMatrix
+    G, M = _entry_expr_to_blocks(to_expr(entry_expr))
+    cnt = (~M).sum(axis=1)
+    s = np.where(M, 0, G).sum(axis=1)
+    mean = np.where(cnt > 0, s / np.maximum(cnt, 1), 0.0)
+    G = np.where(M, mean[:, None], G)
+    centered = G - G.mean(axis=1, keepdims=True)
+    ss = np.sqrt((centered * centered).sum(axis=1, keepdims=True))
+    Z = np.where(ss > 0, centered / np.where(ss > 0, ss, 1), 0.0)
+    bm = BlockMatrix.from_numpy(Z)
+    return bm @ bm.T
+
+
+def ld_matrix(entry_expr, locus_expr, radius,
+              coord_expr=None, block_size: Optional[int] = None) -> 'BlockMatrix':
+    """Windowed LD (correlation) matrix (reference ld_matrix):
+    row_correlation with each row kept inside its locus window
+    (contig-bounded; optional genetic-map coordinates)."""
+    from ..linalg import BlockMatrix
+    from ..linalg.utils import locus_windows
+    corr = row_correlation(entry_expr, block_size)
+    starts, stops = locus_windows(locus_expr, radius, coord_expr=coord_expr)
+    dev = corr._data.device
+    cols_ix = torch.arange(corr.shape[0], device=dev)[None, :]
+    mask = ((cols_ix >= torch.as_tensor(starts, device=dev)[:, None])
+            & (cols_ix < torch.as_tensor(stops, device=dev)[:, None]))
+    return BlockMatrix(torch.where(mask, corr._data, 0.0), corr.block_size)
+
+
+def ld_prune(call_expr, r2: float = 0.2, bp_window_size: int = 1000000,
+             memory_per_core: int = 256, keep_higher_maf: bool = True,
+             block_size: Optional[int] = None) -> Table:
+    """LD pruning with the reference's 3-stage semantics (`statgen.py:4708`):
+    (1) per-partition greedy local prune, (2) windowed r² matrix over the
+    survivors, (3) maximal-independent-set removal with a keep-higher-MAF
+    tie-breaker. Returns the kept variants' row keys as a keyed Table.
+
+    Packed GT calls take the device route: each partition's (gz8, m8) pair,
+    cached under linreg's and the GLMs' key (so a call after a GWAS on the
+    same MatrixTable decodes nothing), is standardized on the device
+    (ops/ldprune.py); any other entry expression is evaluated and
+    standardized on the host and copied to the device. Either way all r²
+    come from one banded product pass (`banded_r2_hits`)."""
+    if block_size is not None and block_size <= 0:
+        raise ValueError(f'block_size must be positive, found {block_size}')
+    if memory_per_core <= 0:
+        raise ValueError(f'memory_per_core must be positive, found {memory_per_core}')
+    if bp_window_size < 0:
+        raise ValueError(f'bp_window_size must be non-negative, found {bp_window_size}')
+    if not 0.0 <= r2 <= 1:
+        raise ValueError(f'r2 must be in the range [0.0, 1.0], found {r2}')
+
+    e = to_expr(call_expr)
+    mt = e._indices.source
+    if mt is None or not isinstance(mt, MatrixTable):
+        raise ValueError('ld_prune: call_expr must be an entry expression')
+    _raise_unless_entry_indexed('ld_prune/call_expr', e)
+    ne = e.n_alt_alleles() if e.dtype == ht.tcall else e
+
+    from ..ops.ldprune import banded_r2_hits, standardize_rows_device
+    device = Env.device()
+    st = mt._stage
+    gt_field = _match_gt_nalt(ne)
+    every_sample = np.arange(st.n_cols)
+    zd_parts, means, oks = [], [], []
+    cidxs, poss, pids = [], [], []
+    for i, ctx in enumerate(st.contexts):
+        mb = st.partition_fn(ctx)
+        pair = _glm_gt_pair(mb, gt_field, every_sample, device)
+        if pair is not None:
+            z, mean_p, ok_p = standardize_rows_device(*pair)
+            R = int(pair[0].shape[0])
+        else:
+            G, M = _eval_entry_f64(mt, ne, mb, i)
+            R = G.shape[0]
+            cnt = (~M).sum(axis=1)
+            sG = np.where(M, 0, G).sum(axis=1)
+            mean_p = np.where(cnt > 0, sG / np.maximum(cnt, 1), 0.0)
+            Gi = np.where(M, mean_p[:, None], G)
+            centered = Gi - mean_p[:, None]
+            ssq = np.sqrt((centered * centered).sum(axis=1))
+            ok_p = ssq > 0
+            z = torch.from_numpy(np.where(
+                ok_p[:, None], centered / np.where(ok_p, ssq, 1)[:, None],
+                0.0)).to(device)
+        zd_parts.append(z)
+        means.append(np.asarray(mean_p))
+        oks.append(np.asarray(ok_p))
+        lc = mb.rows.columns['locus']
+        cidxs.append(np.asarray(lc.contig_idx))
+        poss.append(np.asarray(lc.position))
+        pids.append(np.full(R, i, np.int32))
+    Zd = (torch.cat(zd_parts, dim=0) if len(zd_parts) > 1
+          else zd_parts[0]) if zd_parts else torch.zeros(
+              (0, 0), dtype=torch.float64, device=device)
+    mean = np.concatenate(means) if means else np.zeros(0)
+    ok = np.concatenate(oks) if oks else np.zeros(0, bool)
+    cidx = np.concatenate(cidxs)
+    pos = np.concatenate(poss).astype(np.int64)
+    pid = np.concatenate(pids)
+    m = int(Zd.shape[0])
+
+    # distinct_by_row: duplicate row keys keep the first occurrence
+    first_seen = np.ones(m, dtype=bool)
+    seen = set()
+    rows_table = mt.rows()
+    batch = rows_table._stage.collect_single()
+    key_names = rows_table._stage.key
+    key_pylists = {k: batch.columns[k].to_pylist() for k in key_names}
+    for i in range(m):
+        kk = tuple(_freeze(key_pylists[k][i]) for k in key_names)
+        if kk in seen:
+            first_seen[i] = False
+        else:
+            seen.add(kk)
+
+    # windowed pair structure: rows are locus-sorted, so each variant's
+    # window predecessors are the contiguous range [j0(i), i) within its
+    # contig; W = the widest such range. All r² needed by stages 1 AND 2
+    # live in one (m, W) boolean band (ops/ldprune.py banded_r2_hits)
+    j0_arr = np.empty(m, dtype=np.int64)
+    seg_start = 0
+    for seg_end in np.flatnonzero(
+            np.r_[np.diff(cidx) != 0, True]) + 1:
+        p_seg = pos[seg_start:seg_end]
+        j0_arr[seg_start:seg_end] = seg_start + np.searchsorted(
+            p_seg, p_seg - bp_window_size, side='left')
+        seg_start = seg_end
+    W = int(np.max(np.arange(m) - j0_arr)) if m else 0
+
+    hits = np.zeros((m, W), dtype=bool)
+    if W > 0:
+        for s_, e_, h in banded_r2_hits(Zd, W, r2):
+            hits[s_:e_] = h
+
+    # stage 1: per-partition greedy local prune (reference LocalLDPrune) —
+    # the window scan reads precomputed booleans, no per-variant dots
+    survive = np.zeros(m, dtype=bool)
+    eligible = ok & first_seen
+    for i in range(m):
+        if not eligible[i]:
+            continue
+        lo = j0_arr[i]
+        if lo < i:
+            seg = hits[i, lo - (i - W):W] if W else np.zeros(0, bool)
+            mask = survive[lo:i] & (pid[lo:i] == pid[i])
+            if np.any(seg & mask):
+                continue
+        survive[i] = True
+
+    # stage 2: windowed r² among survivors → edge list (j < i, same contig,
+    # within window, r² >= threshold) — same band, any partition
+    edges = []
+    sv = np.flatnonzero(survive)
+    for i in sv:
+        lo = j0_arr[i]
+        if lo < i:
+            seg = hits[i, lo - (i - W):W]
+            js = np.flatnonzero(survive[lo:i] & seg) + lo
+            edges.extend((int(j), int(i)) for j in js)
+
+    # stage 3: maximal independent set, removing max-degree nodes; ties keep
+    # the higher-MAF variant (reference tie_breaker sign(right-left twice_maf))
+    twice_maf = np.minimum(mean, 2.0 - mean)
+    from collections import defaultdict
+    adj = defaultdict(set)
+    for i, j in edges:
+        adj[i].add(j)
+        adj[j].add(i)
+    removed = set()
+    while True:
+        best = None
+        best_deg = 0
+        for node, nbrs in adj.items():
+            if node in removed:
+                continue
+            deg = len(nbrs - removed)
+            if deg == 0:
+                continue
+            if (best is None or deg > best_deg
+                    or (deg == best_deg and keep_higher_maf
+                        and twice_maf[node] < twice_maf[best])):
+                best, best_deg = node, deg
+        if best is None:
+            break
+        removed.add(best)
+
+    final_keep = survive.copy()
+    for i in removed:
+        final_keep[i] = False
+
+    kept = Batch({k: batch.columns[k].compress(final_keep) for k in key_names},
+                 int(final_keep.sum()))
+    return Table(TableStage.from_batches(
+        Batch({}, 1), key_names,
+        ht.tstruct(**{k: kept.columns[k].typ for k in key_names}), [kept]))
+
+
+def _freeze(v):
+    if isinstance(v, list):
+        return tuple(_freeze(x) for x in v)
+    return v
 
 
 # ---------------------------------------------------------------------------

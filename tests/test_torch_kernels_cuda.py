@@ -23,7 +23,11 @@ n below and not a multiple of its 64-sample tile, m not a multiple of 32
 nor of its 1,024-variant stage, shapes that are whole tiles and stages (no
 padding), enough variants for several stages and slices, and samples with
 every call missing. The GLM device tier has no kernel of its own; it is held to its
-run on the CPU.
+run on the CPU. Neither have the BlockMatrix tier's device ops: the exact
+GRM's int8 products (`torch._int_mm`, at shapes it refuses unpadded) are
+held to the CPU's int32 products bit for bit and its strips to the f64
+product on the card within 1e-12; the ld_prune band to the CPU's bit for
+bit, on data whose r² keep 1e-9 away from the threshold.
 """
 
 import numpy as np
@@ -392,3 +396,76 @@ def test_glm_device_on_the_card_matches_cpu(dev, test):
             assert np.array_equal(np.isnan(a), np.isnan(b)), key
             np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
                                        equal_nan=True, err_msg=key)
+
+
+def _grm_inputs(m, n, seed):
+    rng = np.random.default_rng(seed)
+    G = rng.integers(0, 3, (m, n))
+    M = rng.random((m, n)) < 0.1
+    G[2], M[2] = 1, False                        # monomorphic: excluded
+    cnt = (~M).sum(axis=1)
+    p = np.where(M, 0, G).sum(axis=1) / np.maximum(2 * cnt, 1)
+    ok = (2 * p * (1 - p) > 0) & (cnt > 0)
+    return np.where(M, 0, G).astype(np.int8), M.astype(np.int8), p, ok
+
+
+@pytest.mark.parametrize('m,n,width', [
+    (64, 48, 16), (61, 10, 3), (300, 517, 200), (1000, 2048, 1024)])
+def test_exact_grm_on_the_card_matches_f64_route(dev, m, n, width):
+    """ExactGrm's strips on the card against the f64 route (Zᵀ Z / m by
+    torch.matmul in f64 on the card) within 1e-12, and each plane's int32
+    product (torch._int_mm on padded operands) equal to the CPU's int32
+    product."""
+    from hail_tpu_torch.ops.grm import ExactGrm, _plane_product
+    gz8, m8, p, ok = _grm_inputs(m, n, m + n)
+    g = ExactGrm(torch.from_numpy(gz8).to(dev), torch.from_numpy(m8).to(dev),
+                 p, ok)
+    q = g._planes[0]
+    strip = g.ct[:-(-width // 8) * 8]       # 8-aligned, as strip() pads
+    for k in range(q.shape[0]):
+        got = _plane_product(g.b1t, strip, q[k])
+        want = _plane_product(g.b1t.cpu(), strip.cpu(), q[k].cpu())
+        assert torch.equal(got.cpu(), want)
+    G = torch.from_numpy(gz8).to(dev, torch.float64)
+    miss = torch.from_numpy(m8).to(dev) > 0
+    mean = torch.from_numpy(2 * p).to(dev)
+    d = torch.from_numpy(np.sqrt(2 * p * (1 - p))).to(dev)
+    okd = torch.from_numpy(ok).to(dev)
+    Z = torch.where(okd[:, None] & ~miss,
+                    (G - mean[:, None]) / torch.where(okd, d, 1.0)[:, None],
+                    0.0)
+    K = (Z.T @ Z) / max(int(ok.sum()), 1)
+    for lo, hi, strip in g.strips(width):
+        assert strip.dtype == torch.float64 and strip.shape == (n, hi - lo)
+        err = float((strip - K[:, lo:hi]).abs().max())
+        assert err < 1e-12, (lo, err)
+
+
+def test_ld_band_on_the_card_matches_cpu(dev):
+    from hail_tpu_torch.ops import ldprune
+    rng = np.random.default_rng(8)
+    m, n, w = 3000, 500, 37
+    G = rng.integers(0, 3, (m, n)).astype(np.float64)
+    copy = rng.random(m) < 0.6
+    for i in np.flatnonzero(copy[1:]) + 1:       # planted LD
+        redraw = rng.random(n) < 0.1
+        G[i] = np.where(redraw, rng.integers(0, 3, n), G[i - 1])
+    G -= G.mean(axis=1, keepdims=True)
+    Z = G / np.sqrt((G * G).sum(axis=1, keepdims=True))
+    i, k = np.meshgrid(np.arange(m), np.arange(w), indexing='ij')
+    j = i - w + k
+    r = np.einsum('ikn,ikn->ik', Z[i], Z[np.maximum(j, 0)])
+    assert np.abs(r[j >= 0] ** 2 - 0.2).min() > 1e-9
+    got = np.concatenate([h for _, _, h in ldprune.banded_r2_hits(
+        torch.from_numpy(Z).to(dev), w, 0.2, block=1024)])
+    want = np.concatenate([h for _, _, h in ldprune.banded_r2_hits(
+        torch.from_numpy(Z), w, 0.2, block=1024)])
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
+    m8 = torch.from_numpy((rng.random((64, n)) < 0.05).astype(np.int8))
+    gz8 = torch.from_numpy(rng.integers(0, 3, (64, n)).astype(np.int8)) * (1 - m8)
+    z_c, mean_c, ok_c = ldprune.standardize_rows_device(gz8.to(dev), m8.to(dev))
+    z_h, mean_h, ok_h = ldprune.standardize_rows_device(gz8, m8)
+    np.testing.assert_array_equal(mean_c, mean_h)
+    np.testing.assert_array_equal(ok_c, ok_h)
+    np.testing.assert_allclose(z_c.cpu().numpy(), z_h.numpy(), rtol=1e-14)

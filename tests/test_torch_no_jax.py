@@ -24,6 +24,13 @@ mt = mt.annotate_cols(yb=hl.float64(mt.y > 0.5))
 glm = hl.logistic_regression_rows('wald', y=mt.yb, x=mt.GT.n_alt_alleles(),
                                   covariates=[1.0]).collect()
 assert len(glm) == 30 and any(r.fit.converged for r in glm)
+kept = hl.ld_prune(mt.GT, r2=0.2, bp_window_size=5).count()
+assert 0 < kept <= 30
+K = hl.genetic_relatedness_matrix(mt.GT).to_numpy()
+assert K.shape == (40, 40) and np.allclose(K, K.T)
+a = np.arange(6.0).reshape(2, 3)
+bm = hl.linalg.BlockMatrix.from_numpy(a)
+assert np.array_equal((bm @ bm.T).to_numpy(), a @ a.T)
 hl.stop()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'
