@@ -22,6 +22,15 @@ with planted LD, its kept set held to a numpy oracle of its three stages;
 over one partition against numpy f64; ExactGrm's strips at bench.py's
 config 5 (50,176 samples x 4,096 variants) against the f64 route; and the
 tier's device ops (torch, not kernels) timed against their bounds.
+Relatedness and PCA: a MatrixTable of 10,000 samples x 8,192 variants in 4
+partitions with 8 planted duplicate samples is written in the native
+format and read back (GT held equal), and on what was read
+`hl.hwe_normalized_pca` (k = 10, the randomized route), `hl.king`,
+`hl.pc_relate` (k = 10, min_kinship 0.1) and `hl.maximal_independent_set`
+run, each held to a numpy f64 oracle in this file; then `Table.order_by`
+and `MatrixTable.entries()` over its 4 partitions, and a VCF round trip
+(`hl.export_vcf`, `hl.import_vcf` GT-only) of the IBD MatrixTable's first
+2,048 variants.
 It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
@@ -64,6 +73,15 @@ LD_R2, LD_WINDOW = 0.2, 256    # bench.py:375: ld_prune(r2=0.2, bp_window_size=2
 LD_PARTS = (2_047, 2_049, 2_046, 2_050)
 # bench.py's config 5: kinship strips over 50,176 samples x 4,096 variants
 GRM_M, GRM_N, GRM_B, GRM_STRIPS = 4_096, 50_176, 4_096, 4
+# relatedness and PCA: 10,000 samples x 8,192 variants in 4 partitions, the
+# last 8 samples duplicates of the first 8; 64 sample rows held to numpy
+REL_SAMPLES, REL_VARIANTS, REL_PARTS, REL_DUPS = 10_000, 8_192, 4, 8
+REL_CHECK_ROWS = 64
+PCA_K, REL_MAF, REL_MIN_KIN = 10, 0.01, 0.1
+# the VCF round trip: the IBD MatrixTable's first 2,048 variants (one
+# eighth: export_vcf formats each call in Python, 103 s for all 16,384 x
+# 1,000 on the card's host, PERF.md PR 6)
+VCF_VARIANTS = 2_048
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
@@ -84,10 +102,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno):
+def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno, dups=0):
     """A MatrixTable of packed GT calls in `n_parts` partitions, built as
     bench.py's build_mt builds it: uniform n_alt in {0,1,2}, 2% missing.
-    Returns (mt, nalt blocks, missing blocks, column arrays)."""
+    With `dups`, the last `dups` samples copy the calls and missingness of
+    the first `dups`. Returns (mt, nalt blocks, missing blocks, column
+    arrays)."""
     from hail_tpu_torch import types as ht
     from hail_tpu_torch.genetics.call import pack_diploid
     from hail_tpu_torch.genetics.reference_genome import default_reference
@@ -99,6 +119,9 @@ def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno):
     for p in range(n_parts):
         nalt = rng.integers(0, 3, (block_r, n_samples)).astype(np.int32)
         miss = rng.random((block_r, n_samples)) < MISSING
+        if dups:
+            nalt[:, -dups:] = nalt[:, :dups]
+            miss[:, -dups:] = miss[:, :dups]
         gt = pack_diploid((nalt == 2).astype(np.int32),
                           (nalt >= 1).astype(np.int32))
         pos = np.arange(p * block_r, (p + 1) * block_r, dtype=np.int32) + 10_000
@@ -764,9 +787,13 @@ class Spy:
     generator function is drained inside the call, so that its seconds are
     its own. Restores the functions on exit."""
 
-    def __init__(self, module, *names):
+    def __init__(self, module, *names, keep: bool = False):
+        """With `keep`, `last[name]` holds the arguments, keyword arguments
+        and result of the latest call (the phases time device ops on the
+        tensors a method gave them)."""
         import inspect
         self.spent = {n: [] for n in names}
+        self.last = {}
         self._module = module
         self._saved = {n: getattr(module, n) for n in names}
         for n, fn in self._saved.items():
@@ -776,7 +803,10 @@ class Spy:
                 t0 = time.perf_counter()
                 try:
                     out = _fn(*a, **kw)
-                    return iter(list(out)) if _drain else out
+                    out = iter(list(out)) if _drain else out
+                    if keep:
+                        self.last[_n] = (a, kw, out)
+                    return out
                 finally:
                     self.spent[_n].append(time.perf_counter() - t0)
             setattr(module, n, wrapped)
@@ -862,20 +892,24 @@ def _glm_calls(hl, mt, n_variants, nalts, misses, cols_np, spy):
 
 
 def ibd_method(hl, mt):
-    """hl.identity_by_descent at 1,000 samples x 16,384 variants: the pair
-    rows, the seconds of the call and its launches."""
+    """hl.identity_by_descent at 1,000 samples x 16,384 variants, then the
+    collect of its pair rows: the rows, the seconds of the call and of the
+    collect, and the call's launches."""
     from hail_tpu_torch.ops import _kernels
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rows = hl.identity_by_descent(mt).collect()
-    total = time.perf_counter() - t0
+    table = hl.identity_by_descent(mt)
+    call = time.perf_counter() - t0
     launches = dict(_kernels.launches)
     if not launches['hail_ibs_counts']:
         raise AssertionError('identity_by_descent did not launch K2')
-    return rows, total, launches
+    t0 = time.perf_counter()
+    rows = table.collect()
+    collect = time.perf_counter() - t0
+    return rows, (call, collect), launches
 
 
-def ibd_check(rows, total, mt, dev):
+def ibd_check(rows, seconds, mt, dev):
     """The method's counts against K2 and its plain version on the same
     indicators, finite Z's, and the kernel's share of the call."""
     from hail_tpu_torch.methods.relatedness import _gt_indicator_matrices
@@ -900,11 +934,14 @@ def ibd_check(rows, total, mt, dev):
             raise AssertionError(f'pair ({r.i}, {r.j}): non-finite Z')
     codes = ibs.genotype_codes(*ind[:3])
     kernel_s = timed_ms(lambda: ibs.ibs_counts_codes(codes), reps=3) / 1e3
-    log(f'IBD {n} samples x {het.shape[0]} variants: {len(rows)} pairs in '
-        f'{total:.3f} s; K2 kernel {kernel_s:.4f} s, host (indicators, PLINK '
-        f'epilogue, pair rows) {total - kernel_s:.3f} s; IBS matrices equal '
-        f'the plain version')
-    return dict(total_s=total, kernel_s=kernel_s, host_s=total - kernel_s)
+    call, collect = seconds
+    log(f'IBD {n} samples x {het.shape[0]} variants: the call (indicators, '
+        f'K2, the PLINK epilogue, the pair table by column) {call:.3f} s, of '
+        f'it K2 {kernel_s:.4f} s and the host {call - kernel_s:.3f} s; the '
+        f'collect of its {len(rows)} pair rows {collect:.3f} s; IBS matrices '
+        f'equal the plain version')
+    return dict(total_s=call + collect, call_s=call, collect_s=collect,
+                kernel_s=kernel_s, host_s=call - kernel_s)
 
 
 def phase_ld_prune_gwas(hl, mt, n_variants, n_parts):
@@ -1288,6 +1325,362 @@ def ld_device_ops(dev, gz8, m8):
              yardstick_ms=prod_ms)]
 
 
+def np_randomized_svd(A, k, q, oversample, seed):
+    """The randomized SVD of ops/decomp (Halko, CholeskyQR2, host eigh) in
+    numpy f64, with the same Ω: the PCA oracle. Returns (s, Vt)."""
+    def orthonormalize(Y):
+        for _ in range(2):
+            G = Y.T @ Y
+            try:
+                Rinv = np.linalg.inv(np.linalg.cholesky(G)).T
+            except np.linalg.LinAlgError:
+                w, V = np.linalg.eigh(G)
+                tol = max(np.max(w), 0.0) * len(G) * np.finfo(G.dtype).eps
+                Rinv = (V * np.where(w > tol, 1 / np.sqrt(np.maximum(w, tol)),
+                                     0.0)[None, :]) @ V.T
+            Y = Y @ Rinv
+        return Y
+
+    m, n = A.shape
+    l = min(k + oversample, m, n)
+    Omega = np.random.default_rng(seed & 0xFFFFFFFF).normal(size=(n, l))
+    Q = orthonormalize(A @ Omega)
+    for _ in range(q):
+        Q = orthonormalize(A @ orthonormalize(A.T @ Q))
+    B = Q.T @ A
+    w, V = np.linalg.eigh(B @ B.T)
+    w, V = w[::-1], V[:, ::-1]
+    s = np.sqrt(np.maximum(w, 0.0))
+    tol = s[0] * max(m, n) * np.finfo(s.dtype).eps
+    sinv = np.where(s > tol, 1.0 / np.maximum(s, tol), 0.0)
+    return s[:k], ((sinv[:, None] * V.T) @ B)[:k]
+
+
+def hwe_oracle(nalt, miss):
+    """hwe_normalized_pca's matrix in numpy: calls mean-imputed per
+    variant, variants with p in (0, 1), (g - 2p) / sqrt(2p(1-p) m)."""
+    G = nalt.astype(np.float64)
+    cnt = (~miss).sum(axis=1)
+    mean = np.where(cnt > 0, np.where(miss, 0, G).sum(axis=1)
+                    / np.maximum(cnt, 1), 0.0)
+    p = mean / 2
+    keep = (p > 0) & (p < 1) & (cnt > 0)
+    G = np.where(miss, mean[:, None], G)[keep]
+    m = G.shape[0]
+    return (G - mean[keep][:, None]) / np.sqrt(
+        2 * p[keep] * (1 - p[keep]) * m)[:, None]
+
+
+def king_oracle(nalt, miss, rows):
+    """KING's φ for the samples `rows` against every sample, in numpy f64
+    from the indicators (reference relatedness.py:53-66)."""
+    called = ~miss
+    H, R, A, Cl = ((a & called).astype(np.float64) for a in
+                   (nalt == 1, nalt == 0, nalt == 2, np.ones_like(miss)))
+    both_het = H[:, rows].T @ H
+    opp = R[:, rows].T @ A + A[:, rows].T @ R
+    n_i = H[:, rows].T @ Cl
+    n_j = Cl[:, rows].T @ H
+    return 0.5 + (2 * both_het - 4 * opp - n_i - n_j) / np.maximum(
+        4 * np.minimum(n_i, n_j), 1e-300)
+
+
+def pc_relate_oracle(nalt, miss, scores, maf, rows):
+    """PC-Relate's kin, ibd0, ibd1 and ibd2 for the samples `rows` against
+    every sample, in numpy f64 from the method's PCA scores (reference
+    relatedness.py:118-168); with the least distance of any μ from maf,
+    1 - maf, 0 and 1, and of any of these kin from the k0 cutoff."""
+    G = nalt.astype(np.float64)
+    n = G.shape[1]
+    X = np.concatenate([np.ones((n, 1)), scores], axis=1)
+    cnt = (~miss).sum(axis=1)
+    mean = np.where(miss, 0.0, G).sum(axis=1) / np.maximum(cnt, 1)
+    B = np.linalg.solve(X.T @ X, X.T @ np.where(miss, mean[:, None], G).T).T
+    mu = B @ X.T / 2.0
+    mu_gap = min(float(np.abs(mu - t).min()) for t in (maf, 1 - maf, 0, 1))
+    ok = ~((mu <= maf) | (mu >= 1 - maf) | (mu <= 0) | (mu >= 1) | miss)
+    var = np.where(ok, mu * (1 - mu), 0.0)
+    ca = np.where(ok, G - 2 * mu, 0.0)
+    sd = np.sqrt(var)
+    kin = (ca[:, rows].T @ ca) / (4 * (sd[:, rows].T @ sd))
+    f = 2 * (ca * ca).sum(axis=0) / (4 * (sd * sd).sum(axis=0)) - 1
+    del ca, sd
+    gd = np.where(~ok, 0.0, np.where(G == 0, mu, np.where(G == 1, 0.0, 1 - mu)))
+    ngd = gd - var * (1 + f)[None, :]
+    del gd
+    k2 = (ngd[:, rows].T @ ngd) / (var[:, rows].T @ var)
+    del ngd, var
+    ha, hr = ((ok & (G == v)).astype(np.float64) for v in (2, 0))
+    ibs0 = ha[:, rows].T @ hr + hr[:, rows].T @ ha
+    del ha, hr
+    mu2 = np.where(ok, mu * mu, 0.0)
+    om2 = np.where(ok, (1 - mu) * (1 - mu), 0.0)
+    k0_den = mu2[:, rows].T @ om2 + om2[:, rows].T @ mu2
+    cutoff = 2.0 ** (-5.0 / 2.0)
+    k0 = np.where(kin <= cutoff, 1 - 4 * kin + k2, ibs0 / k0_den)
+    return dict(kin=kin, ibd0=k0, ibd1=1 - (k2 + k0), ibd2=k2), \
+        mu_gap, float(np.abs(kin - cutoff).min())
+
+
+def _sample_index(s):
+    return int(s[1:])
+
+
+def _scores(table, n):
+    """The (n, k) scores of a PCA scores table keyed by sample 's<i>'."""
+    out = np.zeros((n, PCA_K))
+    for r in table.collect():
+        out[_sample_index(r.s)] = r.scores
+    return out
+
+
+def _same_calls(mt, nalt, miss, what):
+    """The GT of `mt`'s partitions against the calls nalt / missing."""
+    from hail_tpu_torch.genetics.call import calls_n_alt_alleles
+    st = mt._stage
+    gts = [st.partition_fn(c).entries['GT'] for c in st.contexts]
+    got_miss = np.concatenate([g.missing_mask() for g in gts])
+    got = np.concatenate([calls_n_alt_alleles(np.asarray(g.values))
+                          for g in gts])
+    if not (np.array_equal(got_miss, miss)
+            and np.array_equal(np.where(miss, 0, got), np.where(miss, 0, nalt))):
+        raise AssertionError(f'{what}: GT differs from the calls written')
+
+
+def phase_relatedness(hl, dev, rng):
+    """The relatedness MatrixTable (REL_SAMPLES x REL_VARIANTS in REL_PARTS
+    partitions, the last REL_DUPS samples duplicates of the first), written
+    in the native format and read back; on the table read back,
+    hwe_normalized_pca (the randomized route on the card), king, pc_relate
+    and maximal_independent_set, each held to numpy f64; then a sort of the
+    rows and the entries of a few samples, tables of REL_PARTS partitions.
+    Returns the phase's seconds and errors, and the device-op records of
+    _king_kernel, _pc_relate_kernel and the PCA's randomized_svd."""
+    import importlib
+    import tempfile
+    rel_mod = importlib.import_module('hail_tpu_torch.methods.relatedness')
+    pca_mod = importlib.import_module('hail_tpu_torch.methods.pca')
+    out = {}
+    mt0, nalts, misses, _ = build_mt(hl, rng, REL_SAMPLES,
+                                     REL_VARIANTS // REL_PARTS, REL_PARTS,
+                                     with_pheno=False, dups=REL_DUPS)
+    nalt, miss = np.concatenate(nalts), np.concatenate(misses)
+    del nalts, misses
+    n = REL_SAMPLES
+    planted = [(k, n - REL_DUPS + k) for k in range(REL_DUPS)]
+    check = np.unique(np.concatenate([
+        np.arange(REL_DUPS), np.arange(n - REL_DUPS, n),
+        rng.choice(n, REL_CHECK_ROWS - 2 * REL_DUPS, replace=False)]))[
+            :REL_CHECK_ROWS]
+    tmp = tempfile.TemporaryDirectory()
+    path = f'{tmp.name}/rel.mt'
+    t0 = time.perf_counter()
+    mt0.write(path)
+    out['write_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mt = hl.read_matrix_table(path)
+    _same_calls(mt, nalt, miss, 'read_matrix_table')
+    out['read_s'] = time.perf_counter() - t0
+    log(f'native format: write of {REL_VARIANTS} x {n} calls in {REL_PARTS} '
+        f'partitions {out["write_s"]:.3f} s, read back (every partition) '
+        f'{out["read_s"]:.3f} s; GT equal entry for entry')
+
+    # hwe_normalized_pca: min(m, n) > 2048, the randomized route
+    with Spy(pca_mod, '_randomized_svd', keep=True) as spy:
+        t0 = time.perf_counter()
+        ev, scores_t, _ = hl.hwe_normalized_pca(mt.GT, k=PCA_K)
+        scores = _scores(scores_t, n)
+        out['hwe_normalized_pca_s'] = time.perf_counter() - t0
+    svd_calls = len(spy.spent['_randomized_svd'])
+    (A, k), kw, _ = spy.last.pop('_randomized_svd')
+    if A.device.type != dev.type or A.dtype != torch.float64:
+        raise AssertionError(f'hwe_normalized_pca: its matrix is {A.dtype} on '
+                             f'{A.device}')
+    svd_ms = timed_ms(lambda: pca_mod._randomized_svd(A, k, **kw), reps=3)
+    svd_m, svd_l = A.shape[0], min(k + kw.get('oversample', 10), *A.shape)
+    del A
+    s_want, Vt_want = np_randomized_svd(hwe_oracle(nalt, miss), PCA_K,
+                                        kw['q'], 10, kw['seed'])
+    want = Vt_want.T * s_want[None, :]
+    ev_err = float(np.abs(np.asarray(ev) / s_want ** 2 - 1).max())
+    sign = np.where((scores * want).sum(axis=0) < 0, -1.0, 1.0)
+    sc_err = float(np.abs(scores * sign - want).max() / np.abs(want).max())
+    if not (ev_err <= 1e-9 and sc_err <= 1e-8):
+        raise AssertionError(f'hwe_normalized_pca: eigenvalues rel err '
+                             f'{ev_err:.3g}, scores {sc_err:.3g} of the largest')
+    out.update(pca_eigval_rel_err=ev_err, pca_scores_rel_err=sc_err,
+               pca_sign_flips=int((sign < 0).sum()))
+    log(f'hwe_normalized_pca k = {PCA_K} ({REL_VARIANTS} x {n}, randomized, '
+        f'q = {kw["q"]}, seed {kw["seed"]}, matrix f64 on {dev.type}): '
+        f'{out["hwe_normalized_pca_s"]:.3f} s; eigenvalues within rtol '
+        f'{ev_err:.3g}, scores within {sc_err:.3g} of the largest of the '
+        f'numpy run with the same Ω ({out["pca_sign_flips"]} columns of '
+        f'opposite sign); randomized_svd {svd_ms:.3f} ms')
+
+    with Spy(rel_mod, '_king_kernel', keep=True) as spy:
+        t0 = time.perf_counter()
+        kmt = hl.king(mt.GT)
+        out['king_s'] = time.perf_counter() - t0
+    king_calls = spy.count()
+    king_args = spy.last.pop('_king_kernel')[0]
+    if any(a.device.type != dev.type or a.dtype != torch.float64
+           for a in king_args):
+        raise AssertionError('king: its indicators are not f64 on the card')
+    phi = kmt._stage.partition_fn(kmt._stage.contexts[0]).entries['phi'].values
+    out['king_max_abs_err'] = float(np.abs(
+        phi[check] - king_oracle(nalt, miss, check)).max())
+    if not out['king_max_abs_err'] <= 1e-12:
+        raise AssertionError(f'king: max abs err {out["king_max_abs_err"]:.3g}')
+    if not (all(phi[i, j] == phi[j, i] == 0.5 for i, j in planted)
+            and (np.diag(phi) == 0.5).all()):
+        raise AssertionError('king: a planted pair or the diagonal is not 1/2')
+    del kmt, phi
+    king_ms = timed_ms(lambda: rel_mod._king_kernel(*king_args), reps=3)
+    m = king_args[0].shape[0]
+    del king_args
+    log(f'king: {out["king_s"]:.3f} s; {len(check)} rows of φ within '
+        f'{out["king_max_abs_err"]:.3g} of numpy; the {REL_DUPS} planted pairs '
+        f'and the diagonal exactly 1/2; _king_kernel {king_ms:.3f} ms')
+
+    with Spy(rel_mod, '_pc_relate_kernel', keep=True) as spy, \
+            Spy(pca_mod, 'hwe_normalized_pca', keep=True) as pspy:
+        t0 = time.perf_counter()
+        rel = hl.pc_relate(mt.GT, min_individual_maf=REL_MAF, k=PCA_K,
+                           min_kinship=REL_MIN_KIN, statistics='all')
+        pairs = rel.collect()
+        out['pc_relate_s'] = time.perf_counter() - t0
+    pc_calls = spy.count()
+    pc_args, _, pc_out = spy.last.pop('_pc_relate_kernel')
+    if any(a.device.type != dev.type for a in pc_args[:3]):
+        raise AssertionError('pc_relate: its matrices are not on the card')
+    pc_scores = _scores(pspy.last['hwe_normalized_pca'][2][1], n)
+    want, mu_gap, kin_gap = pc_relate_oracle(nalt, miss, pc_scores, REL_MAF,
+                                             check)
+    if not (mu_gap > 1e-9 and kin_gap > 1e-9):
+        raise AssertionError(f'pc_relate: a μ lies {mu_gap:.3g} from a bound '
+                             f'or a kin {kin_gap:.3g} from the k0 cutoff')
+    got = dict(kin=pc_out[0], ibd2=pc_out[1], ibd0=pc_out[2])
+    got['ibd1'] = 1 - (got['ibd2'] + got['ibd0'])
+    for f in ('kin', 'ibd0', 'ibd1', 'ibd2'):
+        out[f'pc_relate_{f}_max_abs_err'] = f64_check(
+            got[f][torch.from_numpy(check).to(dev)].cpu().numpy(), want[f],
+            f'pc_relate {f}', rtol=1e-9)
+    found = [(_sample_index(r.i.s), _sample_index(r.j.s)) for r in pairs]
+    if found != planted:
+        raise AssertionError(f'pc_relate: pairs {found[:10]}, expected the '
+                             f'{REL_DUPS} planted')
+    row_of = {int(r): i for i, r in enumerate(check)}
+    for r, (i, j) in zip(pairs, planted):
+        for f in ('kin', 'ibd0', 'ibd1', 'ibd2'):
+            f64_check(np.asarray([r[f]]), want[f][row_of[i], j:j + 1],
+                      f'pc_relate pair ({i}, {j}) {f}', rtol=1e-9)
+    del got, pc_out
+    pc_ms = timed_ms(lambda: rel_mod._pc_relate_kernel(*pc_args), reps=2)
+    del pc_args
+    log(f'pc_relate (k = {PCA_K}, min_kinship {REL_MIN_KIN}, all statistics): '
+        f'{out["pc_relate_s"]:.3f} s; exactly the {REL_DUPS} planted pairs; '
+        f'{len(check)} rows of kin, ibd0, ibd1, ibd2 within rtol 1e-9 of '
+        f'numpy (nearest μ {mu_gap:.3g} from a bound, kin {kin_gap:.3g} from '
+        f'the k0 cutoff); _pc_relate_kernel {pc_ms:.3f} ms')
+
+    t0 = time.perf_counter()
+    kept = hl.maximal_independent_set(rel.i, rel.j, keep=True).collect()
+    out['maximal_independent_set_s'] = time.perf_counter() - t0
+    kept = {_sample_index(r.node.s) for r in kept}
+    if len(kept) != REL_DUPS or any(len(kept & {i, j}) != 1 for i, j in planted):
+        raise AssertionError(f'maximal_independent_set kept {sorted(kept)}')
+    log(f'maximal_independent_set: one sample of each planted pair kept, '
+        f'{out["maximal_independent_set_s"]:.3f} s')
+    out.update(phase_sorts(hl, mt, nalt, miss))
+    del mt, mt0
+    tmp.cleanup()
+
+    ops = []
+    # operations: the f64 products as the reference takes them (three for
+    # KING, six for PC-Relate, each 2 m n^2; for the randomized SVD the
+    # 2 + 2q products of the (m, n) matrix with l columns, each 2 m n l, and
+    # not its l-wide ones); bytes: the (m, n) f64 inputs (and M's bool)
+    # read once, the outputs written once
+    rel_src = 'hail_tpu_torch/methods/relatedness.py'
+    for name, src, ms, calls, rows, n_ops, n_bytes, replaces in (
+            ('_king_kernel', rel_src, king_ms, king_calls, m,
+             3 * 2 * m * n * n, 4 * 8 * m * n + 8 * n * n,
+             'hail_tpu/methods/relatedness.py:54'),
+            ('_pc_relate_kernel', rel_src, pc_ms, pc_calls, m,
+             6 * 2 * m * n * n, (8 + 1 + 8) * m * n + 3 * 8 * n * n,
+             'hail_tpu/methods/relatedness.py:132-167'),
+            ('randomized_svd', 'hail_tpu_torch/ops/decomp.py', svd_ms,
+             svd_calls, svd_m, (2 + 2 * kw['q']) * 2 * svd_m * n * svd_l,
+             8 * svd_m * n + 8 * PCA_K * (svd_m + n),
+             'hail_tpu/ops/decomp.py:62')):
+        bnd = bound(n_bytes, n_ops, F64_FLOPS_PER_S, 'f64_mma')
+        ops.append(dict(name=name, source=src, replaces=replaces,
+                        shape=f'{rows} variants x {n} samples',
+                        launches_per_call=calls, ms=ms, **bnd,
+                        share_of_bound=bnd['bound_ms'] / ms, yardstick=None,
+                        yardstick_ms=None))
+    return out, ops
+
+
+def phase_sorts(hl, mt, nalt, miss):
+    """Sorts of tables of REL_PARTS partitions: the rows by descending
+    position, and the entries of two samples in key order."""
+    t0 = time.perf_counter()
+    rows = mt.rows()
+    pos = [r.locus.position for r in
+           rows.order_by(hl.desc(rows.locus.position)).collect()]
+    order_by_s = time.perf_counter() - t0
+    if pos != sorted(pos, reverse=True) or len(pos) != nalt.shape[0]:
+        raise AssertionError('Table.order_by: rows out of order or missing')
+    cols = [0, REL_SAMPLES - 1]
+    t0 = time.perf_counter()
+    few = mt.filter_cols(hl.literal({f's{c}' for c in cols}).contains(mt.s))
+    ents = few.entries().collect()
+    entries_s = time.perf_counter() - t0
+    want = [(v, c) for v in range(nalt.shape[0]) for c in cols]
+    got = [(r.locus.position - 10_000, _sample_index(r.s)) for r in ents]
+    if got != want:
+        raise AssertionError('MatrixTable.entries(): entries out of order')
+    for r, (v, c) in zip(ents, want):
+        if (r.GT is None) != miss[v, c] or (
+                r.GT is not None and r.GT.n_alt_alleles() != nalt[v, c]):
+            raise AssertionError(f'MatrixTable.entries(): GT at ({v}, {c})')
+    log(f'sorts over {REL_PARTS} partitions: Table.order_by of {len(pos)} rows '
+        f'{order_by_s:.3f} s, entries() of {len(cols)} samples ({len(ents)} '
+        f'rows) {entries_s:.3f} s; both in order, GT equal')
+    return dict(order_by_s=order_by_s, entries_s=entries_s)
+
+
+def phase_vcf(hl, mt):
+    """hl.export_vcf (block-gzipped) of the IBD MatrixTable's first
+    VCF_VARIANTS variants and hl.import_vcf of it, GT only (the route of
+    the C++ line parser when `native` builds, else the reference's own
+    Python parser: a host route either way). GT held equal."""
+    import tempfile
+    from hail_tpu_torch import native
+    from hail_tpu_torch.genetics.call import calls_n_alt_alleles
+    st = mt._stage
+    gt = st.partition_fn(st.contexts[0]).entries['GT']
+    src = mt.head(VCF_VARIANTS) if VCF_VARIANTS < gt.values.shape[0] else mt
+    nalt = calls_n_alt_alleles(np.asarray(gt.values))[:VCF_VARIANTS]
+    miss = gt.missing_mask()[:VCF_VARIANTS]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        hl.export_vcf(src, f'{d}/ibd.vcf.bgz')
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = hl.import_vcf(f'{d}/ibd.vcf.bgz', entry_fields=['GT'])
+        _same_calls(back, nalt, miss, 'import_vcf')
+        import_s = time.perf_counter() - t0
+    route = 'native' if native.get_lib() is not None else 'python'
+    log(f'VCF: export_vcf of {nalt.shape[0]} x {nalt.shape[1]} calls '
+        f'{export_s:.3f} s, import_vcf (GT, the {route} parser'
+        + ('' if route == 'native' else f': {native.build_error()}')
+        + f') {import_s:.3f} s; GT equal')
+    return dict(export_s=export_s, import_s=import_s, parser=route,
+                shape=list(nalt.shape))
+
+
 def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
     import hail_tpu_torch as hl
@@ -1347,8 +1740,14 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
                   '_grm_strip': grm_strips}
     for op in device_ops:
         op['launches_per_call'] = per_launch[op['name']]
-    ibd_rows, ibd_total, n_ibd = ibd_method(hl, mt_ibd)
-    ibd = ibd_check(ibd_rows, ibd_total, mt_ibd, dev)
+    ibd_rows, ibd_seconds, n_ibd = ibd_method(hl, mt_ibd)
+    ibd = ibd_check(ibd_rows, ibd_seconds, mt_ibd, dev)
+    del ibd_rows
+    # relatedness and PCA on a MatrixTable written and read back, VCF out
+    # and in, and the sorts of tables of more than one partition
+    rel, rel_ops = phase_relatedness(hl, dev, rng)
+    rel['vcf'] = phase_vcf(hl, mt_ibd)
+    device_ops += rel_ops
     per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
     per_call['hail_ibs_counts'] = n_ibd['hail_ibs_counts']
     names = {'unpack_gt_2bit': 'hail_unpack_gt_2bit',
@@ -1372,7 +1771,7 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     if loaded:
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
-    return records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods
+    return records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel
 
 
 def li_pair(dev, nalt, miss):
@@ -1397,7 +1796,7 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods = run(dev)
+    records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel = run(dev)
     log(f'run: {time.perf_counter() - t0:.1f} s, the kernels\' build included')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -1405,7 +1804,8 @@ def main() -> int:
     print(json.dumps({'gwas_variants_per_s': gwas,
                       'glm_variants_per_s': glm, 'glm_seconds': glm_s,
                       'ibd_seconds': ibd, 'ld_prune': ld,
-                      'blockmatrix_methods': bm_methods}))
+                      'blockmatrix_methods': bm_methods,
+                      'relatedness': rel}))
     op_order = ('name', 'source', 'replaces', 'shape', 'launches_per_call',
                 'ms', 'bound_ms', 'bound_by', 'bound_unit', 'share_of_bound',
                 'yardstick', 'yardstick_ms')

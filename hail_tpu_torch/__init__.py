@@ -20,9 +20,10 @@ from .context import (init, stop, default_reference, get_reference,
                       copy_log, debug_info, _with_flags, ANY_REGION,
                       set_global_seed, _set_flags, _get_flags, tmp_dir, Env,
                       current_backend, current_device)
-from .table import (Table, GroupedTable, range_table, parallelize,
+from .table import (Table, GroupedTable, range_table, parallelize, read_table,
                     asc, desc, multi_way_zip_join)
-from .matrixtable import MatrixTable, GroupedMatrixTable, range_matrix_table
+from .matrixtable import (MatrixTable, GroupedMatrixTable, range_matrix_table,
+                          read_matrix_table)
 
 from .expr.expression import (Expression, ArrayExpression, BooleanExpression,
                               CallExpression, CollectionExpression,
@@ -109,6 +110,11 @@ from .expr import aggregators as agg
 from .expr import scans as scan
 from . import methods as _methods_mod
 from .methods import *  # noqa: F401,F403
+from .methods.pca import (_blanczos_pca, _hwe_normalized_blanczos,
+                          _pca_and_moments, _spectral_moments)
+from . import linalg
+from . import nd
+from . import io
 from . import utils
 from .utils.hadoop import (hadoop_open, hadoop_copy, hadoop_exists,
                            hadoop_is_file, hadoop_is_dir, hadoop_stat,
@@ -116,7 +122,8 @@ from .utils.hadoop import (hadoop_open, hadoop_copy, hadoop_exists,
                            TemporaryDirectory, TemporaryFilename)
 from . import stats
 from . import fs
-from . import linalg
+from .io.native import query_table as query_table, \
+    query_matrix_table_rows as query_matrix_table_rows
 
 
 def reset_global_randomness():

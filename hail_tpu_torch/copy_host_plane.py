@@ -35,6 +35,10 @@ COPIED = [
     'stats/genchisq.py', 'stats/glmfit.py',
     'linalg/utils/__init__.py', 'linalg/utils/misc.py',
     'resources/reference',
+    'io/__init__.py', 'io/native.py', 'io/hail_format.py', 'io/vcf.py',
+    'io/bgen.py', 'io/avro.py',
+    'native/__init__.py', 'native/hail_native.cpp',
+    'methods/impex.py', 'nd/__init__.py',
 ]
 
 _IMPORT_RE = re.compile(
@@ -78,7 +82,7 @@ _ENTRY_AGG_OLD = '''        import os
                     else missing(e.dtype),)
         return (out,)
 '''
-_ENTRY_AGG_NEW = '''        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 7): the host
+_ENTRY_AGG_NEW = '''        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 4): the host
         # evaluator runs every entry aggregation, as the reference's does
         # under HAIL_TPU_NO_DEVICE_AGG=1.
         return None
@@ -101,13 +105,13 @@ _DEVICE_SORT_OLD = '''    from .ops.device_sort import device_range_sort, sortab
     return TableStage.from_batches(stage.globals, [], stage.row_type,
                                    parts or [Batch.empty(stage.row_type)])
 '''
-_DEVICE_SORT_NEW = '''    # ops/device_sort is not ported yet (ROADMAP queue 1, item 9): the host
+_DEVICE_SORT_NEW = '''    # ops/device_sort is not ported yet (ROADMAP queue 1, item 6): the host
     # sort runs, as the reference's does under use_device_sort=0. Its port
     # splits the order over torch.cuda.device_count() devices on CUDA, else 1.
     return None
 '''
 
-# stats/linear_mixed_model (jax) is not ported yet (ROADMAP queue 1, item 8)
+# stats/linear_mixed_model (jax) is not ported yet (ROADMAP queue 1, item 5)
 _STATS_INIT_OLD = '''from .linear_mixed_model import LinearMixedModel
 
 __all__ = ['hwe_test', 'hwe_test_vec', 'LinearMixedModel']
@@ -115,6 +119,104 @@ __all__ = ['hwe_test', 'hwe_test_vec', 'LinearMixedModel']
 _STATS_INIT_NEW = '''
 __all__ = ['hwe_test', 'hwe_test_vec']
 '''
+
+# backend/distributed (jax.distributed) is not ported yet: without this
+# edit every sort of more than one partition raised ModuleNotFoundError
+_MULTIHOST_SORT_OLD = '''    from .backend.distributed import MultihostBackend
+    be = Env.backend()
+    if isinstance(be, MultihostBackend) and be.process_count > 1:
+        return _multihost_sample_sort(stage, specs, be, samples_per_partition)
+'''
+_MULTIHOST_SORT_NEW = '''    # backend/distributed is not ported yet (ROADMAP queue 1, item 6): one
+    # process sorts, as the reference's does on a single-process backend;
+    # _multihost_sample_sort waits for that item's MultihostBackend.
+'''
+
+# Object columns are pickled. Files of both packages name their value
+# classes by module; reading maps `hail_tpu` to `hail_tpu_torch` (so a read
+# imports no jax), and writing names each `hail_tpu_torch` class or function
+# as an `importlib.import_module` + `getattr` of its `hail_tpu` twin, which
+# the reference resolves to its own classes and this reader maps back.
+_PICKLE_IMPORTS_OLD = '''import json
+import os
+import pickle
+'''
+_PICKLE_IMPORTS_NEW = '''import importlib
+import io
+import json
+import os
+import pickle
+import types as _pytypes
+'''
+_PICKLE_HELPERS_OLD = '''FORMAT_VERSION = 1
+'''
+_PICKLE_HELPERS_NEW = '''FORMAT_VERSION = 1
+
+_PORT, _REF = 'hail_tpu_torch', 'hail_tpu'
+
+
+def _port_module(name: str) -> str:
+    if name == _REF or name.startswith(_REF + '.'):
+        return _PORT + name[len(_REF):]
+    return name
+
+
+def _ref_module(name: str) -> str:
+    if name == _PORT or name.startswith(_PORT + '.'):
+        return _REF + name[len(_PORT):]
+    return name
+
+
+def _import_port_module(name: str):
+    return importlib.import_module(_port_module(name))
+
+
+class _RefModule:
+    """Pickles as `importlib.import_module(name)` of a reference module."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __reduce__(self):
+        return importlib.import_module, (self.name,)
+
+
+class _Pickler(pickle.Pickler):
+    """Writes each class or function of this package as a `getattr` on its
+    reference module imported by name, so the reference reads its own
+    classes back without this package installed."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, (type, _pytypes.FunctionType)):
+            mod = obj.__module__ or ''
+            if _ref_module(mod) != mod and '.' not in obj.__qualname__:
+                return getattr, (_RefModule(_ref_module(mod)), obj.__qualname__)
+        return NotImplemented
+
+
+class _Unpickler(pickle.Unpickler):
+    """Reads the reference's object columns and this package's as this
+    package's classes: `hail_tpu` modules are looked up as `hail_tpu_torch`."""
+
+    def find_class(self, module, name):
+        if (module, name) == ('importlib', 'import_module'):
+            return _import_port_module
+        return super().find_class(_port_module(module), name)
+
+
+def _dumps(values) -> bytes:
+    buf = io.BytesIO()
+    _Pickler(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(values)
+    return buf.getvalue()
+
+
+def _loads(data: bytes):
+    return _Unpickler(io.BytesIO(data)).load()
+'''
+_PICKLE_DUMP_OLD = '''np.frombuffer(pickle.dumps(list(col.values.ravel())), dtype=np.uint8)'''
+_PICKLE_DUMP_NEW = '''np.frombuffer(_dumps(list(col.values.ravel())), dtype=np.uint8)'''
+_PICKLE_LOAD_OLD = '''vals = pickle.loads(arrs[f'{name}.obj'].tobytes())'''
+_PICKLE_LOAD_NEW = '''vals = _loads(arrs[f'{name}.obj'].tobytes())'''
 
 # the device cache's default budget is sized for the H100's 80 GB, not the
 # reference's 16 GiB TPU (ops/devcache.py holds the same default)
@@ -144,6 +246,11 @@ EDITS = [
     ('matrixtable.py', _ENTRY_AGG_OLD, _ENTRY_AGG_NEW),
     ('table.py', _DEVICE_SORT_OLD, _DEVICE_SORT_NEW),
     ('stats/__init__.py', _STATS_INIT_OLD, _STATS_INIT_NEW),
+    ('table.py', _MULTIHOST_SORT_OLD, _MULTIHOST_SORT_NEW),
+    ('io/native.py', _PICKLE_IMPORTS_OLD, _PICKLE_IMPORTS_NEW),
+    ('io/native.py', _PICKLE_HELPERS_OLD, _PICKLE_HELPERS_NEW),
+    ('io/native.py', _PICKLE_DUMP_OLD, _PICKLE_DUMP_NEW),
+    ('io/native.py', _PICKLE_LOAD_OLD, _PICKLE_LOAD_NEW),
 ]
 
 

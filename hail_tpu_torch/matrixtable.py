@@ -1019,7 +1019,7 @@ class MatrixTable:
         the whole seqOp fuses into one jitted jnp reduction per partition.
         Returns (result,) or None to fall back to the host evaluator.
         Disable with HAIL_TPU_NO_DEVICE_AGG=1."""
-        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 7): the host
+        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 4): the host
         # evaluator runs every entry aggregation, as the reference's does
         # under HAIL_TPU_NO_DEVICE_AGG=1.
         return None

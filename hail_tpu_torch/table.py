@@ -2252,10 +2252,9 @@ def _sample_sort(stage: 'TableStage', specs: List[Tuple[str, bool]],
     per-destination all_to_all and no process ever materializes the whole
     table (_multihost_sample_sort).
     """
-    from .backend.distributed import MultihostBackend
-    be = Env.backend()
-    if isinstance(be, MultihostBackend) and be.process_count > 1:
-        return _multihost_sample_sort(stage, specs, be, samples_per_partition)
+    # backend/distributed is not ported yet (ROADMAP queue 1, item 6): one
+    # process sorts, as the reference's does on a single-process backend;
+    # _multihost_sample_sort waits for that item's MultihostBackend.
     batches = stage.collect_batches()
     batches = [b for b in batches if b.length]
     if not batches:
@@ -2316,7 +2315,7 @@ def _device_sample_sort(stage: 'TableStage', batches: List['Batch'],
             if Env.is_initialized() else '1')
     if str(flag) in ('0', 'false'):
         return None
-    # ops/device_sort is not ported yet (ROADMAP queue 1, item 9): the host
+    # ops/device_sort is not ported yet (ROADMAP queue 1, item 6): the host
     # sort runs, as the reference's does under use_device_sort=0. Its port
     # splits the order over torch.cuda.device_count() devices on CUDA, else 1.
     return None

@@ -1,5 +1,7 @@
 """hail_tpu_torch imports and runs with jax blocked, and loads nothing of
-hail_tpu. In a subprocess: this test process has jax loaded already
+hail_tpu: its methods, and every module of the file I/O, PCA and
+relatedness (imported; the C++ helpers of `native` are not built here).
+In a subprocess: this test process has jax loaded already
 (tests/conftest.py imports it)."""
 
 import os
@@ -31,6 +33,23 @@ assert K.shape == (40, 40) and np.allclose(K, K.T)
 a = np.arange(6.0).reshape(2, 3)
 bm = hl.linalg.BlockMatrix.from_numpy(a)
 assert np.array_equal((bm @ bm.T).to_numpy(), a @ a.T)
+import importlib
+for name in ('io', 'io.native', 'io.vcf', 'io.bgen', 'io.hail_format',
+             'io.avro', 'native', 'nd', 'methods.impex', 'ops.decomp',
+             'methods.pca', 'methods.relatedness'):
+    importlib.import_module('hail_tpu_torch.' + name)
+phi = hl.king(mt.GT)
+assert phi.count() == (40, 40)
+ev, scores, _ = hl.hwe_normalized_pca(mt.GT, k=2)
+assert len(ev) == 2 and scores.count() == 40
+rel = hl.pc_relate(mt.GT, 0.01, k=2, statistics='kin', min_kinship=0.2)
+assert hl.maximal_independent_set(rel.i, rel.j).count() <= 40
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    mt.write(d + '/m.mt')
+    assert hl.read_matrix_table(d + '/m.mt').count() == (30, 40)
+    rel.write(d + '/r.ht')
+    assert hl.read_table(d + '/r.ht').count() == rel.count()
 hl.stop()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'
