@@ -30,7 +30,12 @@ format and read back (GT held equal), and on what was read
 run, each held to a numpy f64 oracle in this file; then `Table.order_by`
 and `MatrixTable.entries()` over its 4 partitions, and a VCF round trip
 (`hl.export_vcf`, `hl.import_vcf` GT-only) of the IBD MatrixTable's first
-2,048 variants.
+2,048 variants. QC: on 10,000 samples x 8,192 variants in 4 partitions
+(GT, DP, GQ; 5% triallelic, an eighth on X) K5 against its plain version,
+`hl.sample_qc`, `hl.variant_qc` (K5 once per partition), `hl.impute_sex`
+and an `aggregate_entries` on the device tier and on the host evaluator,
+each held to numpy; `hl.split_multi_hts` of 1,024 variants with AD and
+PL held to numpy.
 It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
@@ -49,6 +54,7 @@ reports them, and
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +88,13 @@ PCA_K, REL_MAF, REL_MIN_KIN = 10, 0.01, 0.1
 # eighth: export_vcf formats each call in Python, 103 s for all 16,384 x
 # 1,000 on the card's host, PERF.md PR 6)
 VCF_VARIANTS = 2_048
+# QC: 10,000 samples x 8,192 variants in 4 partitions with GT, DP and GQ,
+# 2% of GT and 3% of DP and of GQ missing, 5% of the rows triallelic, the
+# last eighth on X; split_multi_hts over 1,024 variants with AD and PL, a
+# quarter of them triallelic
+QC_SAMPLES, QC_VARIANTS, QC_PARTS = 10_000, 8_192, 4
+QC_GT_MISSING, QC_FIELD_MISSING, QC_TRIALLELIC = 0.02, 0.03, 0.05
+HTS_VARIANTS, HTS_TRIALLELIC = 1_024, 0.25
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
@@ -1681,6 +1694,482 @@ def phase_vcf(hl, mt):
                 shape=list(nalt.shape))
 
 
+def build_qc_mt(hl, rng, n_samples, n_variants, n_parts):
+    """The QC MatrixTable: GT, DP and GQ over `n_variants` rows in `n_parts`
+    partitions (QC_GT_MISSING of GT missing, QC_FIELD_MISSING of DP and of
+    GQ), QC_TRIALLELIC of the rows triallelic, the last eighth of the rows
+    on X outside the PARs, where the first half of the samples (males) carry
+    homozygous calls. Alleles: [A, G] (a transition) and [A, T] (a
+    transversion) in turn, [A, G, T] where triallelic, at frequencies from
+    Beta(0.5, 4) (the third allele Beta(0.5, 8)): mostly rare, as in a
+    sequenced call set, which also sets the cost of variant_qc's host HWE
+    test (its recurrence runs over the minor allele count). Returns (mt, the
+    partitions' arrays: j, k (int8, j <= k), GT missing, DP, DP missing, GQ,
+    GQ missing, the allele count per row)."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ir.columns import (Batch, LocusColumn, ObjectColumn,
+                                           PrimitiveColumn)
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    rg = default_reference()
+    x_idx = rg.contigs.index('X')
+    R, C = n_variants // n_parts, n_samples
+    first_x = n_variants - n_variants // 8
+    mbs, parts = [], []
+    for p in range(n_parts):
+        idx = np.arange(p * R, (p + 1) * R)
+        on_x = idx >= first_x
+        n_all = np.where(rng.random(R) < QC_TRIALLELIC, 3, 2)
+        # allele frequencies skewed to rare, as in a sequenced call set
+        af1 = np.clip(rng.beta(0.5, 4.0, R), 0.005, 0.5)
+        af2 = np.where(n_all == 3, np.clip(rng.beta(0.5, 8.0, R), 0.005, 0.2),
+                       0.0)
+        al = []
+        for _ in range(2):
+            u = rng.random((R, C))
+            al.append(np.where(u < af1[:, None], 1,
+                               np.where(u < (af1 + af2)[:, None], 2, 0))
+                      .astype(np.int8))
+        males = np.zeros(C, bool)
+        males[:C // 2] = True
+        al[1] = np.where(on_x[:, None] & males[None, :], al[0], al[1])
+        j, k = np.minimum(*al), np.maximum(*al)
+        gt = (2 | (j.astype(np.int32) << 3) | (k.astype(np.int32) << 17))
+        gt_m = rng.random((R, C)) < QC_GT_MISSING
+        dp = rng.integers(0, 60, (R, C), dtype=np.int32)
+        dp_m = rng.random((R, C)) < QC_FIELD_MISSING
+        gq = rng.integers(0, 99, (R, C), dtype=np.int32)
+        gq_m = rng.random((R, C)) < QC_FIELD_MISSING
+        alleles = np.empty(R, dtype=object)
+        alleles[:] = [['A', 'G', 'T'] if n == 3 else
+                      (['A', 'G'] if i % 2 == 0 else ['A', 'T'])
+                      for i, n in zip(idx, n_all)]
+        rows = Batch({
+            'locus': LocusColumn(ht.tlocus(rg),
+                                 np.where(on_x, x_idx, 0).astype(np.int32),
+                                 np.where(on_x, 3_000_000, 10_000).astype(np.int32)
+                                 + idx.astype(np.int32)),
+            'alleles': ObjectColumn(ht.tarray(ht.tstr), alleles),
+        }, R)
+        mbs.append(MatrixBatch(rows, {
+            'GT': PrimitiveColumn(ht.tcall, gt, gt_m),
+            'DP': PrimitiveColumn(ht.tint32, dp, dp_m),
+            'GQ': PrimitiveColumn(ht.tint32, gq, gq_m)}))
+        parts.append(dict(j=j, k=k, gt_m=gt_m, dp=dp, dp_m=dp_m, gq=gq,
+                          gq_m=gq_m, n_all=n_all, on_x=on_x,
+                          ti1=np.asarray([len(a) == 3 or a[1] == 'G'
+                                          for a in alleles])))
+    cols = Batch({'s': ObjectColumn(
+        ht.tstr, np.asarray([f's{i}' for i in range(C)], object))}, C)
+    row_t = ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr))
+    mt = MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), cols, ['locus', 'alleles'], ['s'], row_t,
+        ht.tstruct(s=ht.tstr),
+        ht.tstruct(GT=ht.tcall, DP=ht.tint32, GQ=ht.tint32), mbs))
+    return mt, parts
+
+
+def _qc_struct(batch, name):
+    """The fields of StructColumn `name` of a row or column batch as numpy
+    (values, missing) pairs."""
+    col = batch.columns[name]
+    out = {}
+    for f, c in col.fields.items():
+        if hasattr(c, 'fields'):
+            for g, cc in c.fields.items():
+                out[f'{f}.{g}'] = (np.asarray(cc.values), cc.missing_mask())
+        else:
+            out[f] = (np.asarray(c.values), c.missing_mask())
+    return out
+
+
+def _eq(got, want, what, rtol=0.0):
+    got, want = np.asarray(got), np.asarray(want)
+    ok = (np.array_equal(got, want) if rtol == 0 else
+          np.allclose(got, want, rtol=rtol, atol=0, equal_nan=True))
+    if not ok or got.shape != want.shape:
+        raise AssertionError(f'{what}: differs from the numpy oracle')
+
+
+def variant_qc_oracle(q, part):
+    """variant_qc's counters of one partition against numpy on its arrays."""
+    j, k, called = part['j'], part['k'], ~part['gt_m']
+    n_called = called.sum(axis=1)
+    _eq(q['n_called'][0], n_called, 'variant_qc n_called')
+    _eq(q['AN'][0], 2 * n_called, 'variant_qc AN')
+    _eq(q['n_het'][0], (called & (j != k)).sum(axis=1), 'variant_qc n_het')
+    _eq(q['n_non_ref'][0], (called & (k > 0)).sum(axis=1),
+        'variant_qc n_non_ref')
+    _eq(q['call_rate'][0], n_called / j.shape[1], 'variant_qc call_rate')
+    ac = np.stack([(called & (j == a)).sum(axis=1) + (called & (k == a)).sum(axis=1)
+                   for a in range(3)], axis=1)
+    hom = np.stack([(called & (j == a) & (k == a)).sum(axis=1)
+                    for a in range(3)], axis=1)
+    tri = part['n_all'] == 3
+    for name, want in (('AC', ac), ('homozygote_count', hom)):
+        got = q[name][0]
+        _eq(got[:, :2], want[:, :2], f'variant_qc {name}')
+        if tri.any():
+            _eq(got[tri, 2], want[tri, 2], f'variant_qc {name} (third allele)')
+    for f in ('dp', 'gq'):
+        v, ok = part[f].astype(np.float64), ~part[f'{f}_m']
+        n = ok.sum(axis=1)
+        mean = np.where(ok, v, 0).sum(axis=1) / n
+        _eq(q[f'{f}_stats.mean'][0], mean, f'variant_qc {f}_stats.mean')
+        _eq(q[f'{f}_stats.min'][0], np.where(ok, v, np.inf).min(axis=1),
+            f'variant_qc {f}_stats.min')
+        _eq(q[f'{f}_stats.max'][0], np.where(ok, v, -np.inf).max(axis=1),
+            f'variant_qc {f}_stats.max')
+        var = np.where(ok, v * v, 0).sum(axis=1) / n - mean * mean
+        _eq(q[f'{f}_stats.stdev'][0], np.sqrt(np.maximum(var, 0)),
+            f'variant_qc {f}_stats.stdev', rtol=1e-12)
+
+
+def sample_qc_oracle(sq, parts):
+    """sample_qc's counters against numpy over every partition."""
+    tot = {}
+
+    def add(key, v):
+        tot[key] = tot.get(key, 0) + v
+
+    for part in parts:
+        j, k, called = part['j'], part['k'], ~part['gt_m']
+        add('n_called', called.sum(axis=0))
+        add('n_hom_ref', (called & (k == 0)).sum(axis=0))
+        add('n_het', (called & (j != k)).sum(axis=0))
+        add('n_hom_var', (called & (j == k) & (j > 0)).sum(axis=0))
+        ti1 = part['ti1'][:, None]
+        add('n_transition', (called & ti1 & (j == 1)).sum(axis=0)
+            + (called & ti1 & (k == 1)).sum(axis=0))
+        add('n_snp', (called & (j > 0)).sum(axis=0)
+            + (called & (k > 0)).sum(axis=0))
+        for f in ('dp', 'gq'):
+            v, ok = part[f].astype(np.float64), ~part[f'{f}_m']
+            add(f'{f}_sum', np.where(ok, v, 0).sum(axis=0))
+            add(f'{f}_n', ok.sum(axis=0))
+            tot[f'{f}_min'] = np.minimum(tot.get(f'{f}_min', np.inf),
+                                         np.where(ok, v, np.inf).min(axis=0))
+    for key in ('n_called', 'n_hom_ref', 'n_het', 'n_hom_var', 'n_transition',
+                'n_snp'):
+        _eq(sq[key][0], tot[key], f'sample_qc {key}')
+    _eq(sq['n_transversion'][0], tot['n_snp'] - tot['n_transition'],
+        'sample_qc n_transversion')
+    for f in ('dp', 'gq'):
+        _eq(sq[f'{f}_stats.mean'][0], tot[f'{f}_sum'] / tot[f'{f}_n'],
+            f'sample_qc {f}_stats.mean')
+        _eq(sq[f'{f}_stats.min'][0], tot[f'{f}_min'], f'sample_qc {f}_stats.min')
+
+
+def impute_sex_oracle(parts, n_samples):
+    """f_stat per sample from the X rows: AF of allele 1 over the called
+    calls, rows with AF > 0, expected homs Σ 1 - 2 AF (1 - AF), observed
+    the called non-het calls."""
+    n = np.zeros(n_samples)
+    exp = np.zeros(n_samples)
+    obs = np.zeros(n_samples)
+    for part in parts:
+        x = part['on_x']
+        if not x.any():
+            continue
+        j, k, called = part['j'][x], part['k'][x], ~part['gt_m'][x]
+        an = 2 * called.sum(axis=1)
+        af = ((called & (j == 1)).sum(axis=1)
+              + (called & (k == 1)).sum(axis=1)) / np.maximum(an, 1)
+        use = called & ((an > 0) & (af > 0))[:, None]
+        n += use.sum(axis=0)
+        exp += np.where(use, (1 - 2 * af * (1 - af))[:, None], 0).sum(axis=0)
+        obs += (use & (j == k)).sum(axis=0)
+    return n, exp, (obs - exp) / (n - exp)
+
+
+def hts_mt(hl, rng, n_samples, n_variants):
+    """An HTS MatrixTable in 2 partitions: diploid GT (QC_GT_MISSING
+    missing), AD, DP, GQ and PL, HTS_TRIALLELIC of the rows triallelic
+    ([A, G, T]; else [A, G]). Returns (mt, the partitions' arrays)."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ir.columns import (Batch, DenseArrayColumn,
+                                           LocusColumn, ObjectColumn,
+                                           PrimitiveColumn)
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    rg = default_reference()
+    R, C = n_variants // 2, n_samples
+    mbs, parts = [], []
+    for p in range(2):
+        A = np.where(rng.random(R) < HTS_TRIALLELIC, 3, 2)
+        al = rng.integers(0, 3, (2, R, C)) % A[None, :, None]
+        j, k = np.minimum(*al), np.maximum(*al)
+        gt = (2 | (j << 3) | (k << 17)).astype(np.int32)
+        gt_m = rng.random((R, C)) < QC_GT_MISSING
+        ad = rng.integers(0, 40, (R, C, 3), dtype=np.int32)
+        ad[A == 2, :, 2] = 0
+        pl = rng.integers(0, 300, (R, C, 6), dtype=np.int32)
+        pl[A == 2, :, 3:] = 0
+        dp = ad.sum(axis=2, dtype=np.int32)
+        gq = rng.integers(0, 99, (R, C), dtype=np.int32)
+        alleles = np.empty(R, dtype=object)
+        alleles[:] = [['A', 'G', 'T'] if a == 3 else ['A', 'G'] for a in A]
+        rows = Batch({
+            'locus': LocusColumn(ht.tlocus(rg), np.zeros(R, np.int32),
+                                 np.arange(p * R, (p + 1) * R, dtype=np.int32)
+                                 + 10_000),
+            'alleles': ObjectColumn(ht.tarray(ht.tstr), alleles)}, R)
+        lens = np.broadcast_to(A[:, None], (R, C))
+        mbs.append(MatrixBatch(rows, {
+            'GT': PrimitiveColumn(ht.tcall, gt, gt_m),
+            'AD': DenseArrayColumn(ht.tarray(ht.tint32), ad, lens.copy()),
+            'DP': PrimitiveColumn(ht.tint32, dp),
+            'GQ': PrimitiveColumn(ht.tint32, gq),
+            'PL': DenseArrayColumn(ht.tarray(ht.tint32), pl,
+                                   (lens * (lens + 1) // 2).copy())}))
+        parts.append(dict(A=A, j=j, k=k, gt_m=gt_m, ad=ad, pl=pl, gq=gq))
+    cols = Batch({'s': ObjectColumn(
+        ht.tstr, np.asarray([f's{i}' for i in range(C)], object))}, C)
+    row_t = ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr))
+    ent_t = ht.tstruct(GT=ht.tcall, AD=ht.tarray(ht.tint32), DP=ht.tint32,
+                       GQ=ht.tint32, PL=ht.tarray(ht.tint32))
+    return MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), cols, ['locus', 'alleles'], ['s'], row_t,
+        ht.tstruct(s=ht.tstr), ent_t, mbs)), parts
+
+
+def split_hts_oracle(mb, part):
+    """split_multi_hts of one partition against numpy: each row r and alt a
+    (in order) gives GT downcoded to [j == a] + [k == a], AD [ΣAD - AD[a],
+    AD[a]], PL[d] the least PL over genotypes (x, y) with [x == a] + [y ==
+    a] = d, GQ from that PL (the two least, each capped at 99), and PL and
+    GQ missing where GT is."""
+    src = [(r, a) for r, n in enumerate(part['A']) for a in range(1, n)]
+    rr = np.asarray([r for r, _ in src])
+    aa = np.asarray([a for _, a in src])[:, None]
+    if mb.n_rows != len(src):
+        raise AssertionError(f'split_multi_hts: {mb.n_rows} rows, expected '
+                             f'{len(src)}')
+    j, k, gt_m = part['j'][rr], part['k'][rr], part['gt_m'][rr]
+    nalt = (j == aa).astype(np.int64) + (k == aa)
+    gt = np.asarray(mb.entries['GT'].values)
+    from hail_tpu_torch.genetics.call import calls_n_alt_alleles
+    _eq(calls_n_alt_alleles(gt)[~gt_m], nalt[~gt_m], 'split_multi_hts GT')
+    _eq(mb.entries['GT'].missing_mask(), gt_m, 'split_multi_hts GT missing')
+    ad = part['ad'][rr]
+    sel = np.take_along_axis(ad, np.broadcast_to(aa[:, :, None], ad.shape[:2] + (1,)),
+                             axis=2)[..., 0]
+    _eq(mb.entries['AD'].values[..., :2],
+        np.stack([ad.sum(axis=2) - sel, sel], axis=2), 'split_multi_hts AD')
+    pl = part['pl'][rr].astype(np.int64)
+    gts = [(x, y) for y in range(3) for x in range(y + 1)]   # PL order
+    A = part['A'][rr][:, None]
+    new = np.full(pl.shape[:2] + (3,), np.iinfo(np.int64).max)
+    for gi, (x, y) in enumerate(gts):
+        d = (x == aa).astype(np.int64) + (y == aa)           # (rows, 1)
+        valid = (y < A)                                      # in this row
+        for dd in range(3):
+            hit = (d == dd) & valid
+            new[..., dd] = np.where(hit, np.minimum(new[..., dd], pl[..., gi]),
+                                    new[..., dd])
+    got_pl = mb.entries['PL'].values[..., :3]
+    _eq(got_pl[~gt_m], new[~gt_m], 'split_multi_hts PL')
+    _eq(mb.entries['PL'].missing_mask(), gt_m, 'split_multi_hts PL missing')
+    srt = np.sort(new, axis=2)
+    gq = np.minimum(srt[..., 1], 99) - np.minimum(srt[..., 0], 99)
+    got_gq = np.asarray(mb.entries['GQ'].values)
+    _eq(got_gq[~gt_m], gq[~gt_m], 'split_multi_hts GQ')
+    _eq(got_gq[gt_m], part['gq'][rr][gt_m], 'split_multi_hts GQ (old)')
+
+
+def phase_qc(hl, dev, rng):
+    """QC on the QC MatrixTable (QC_SAMPLES x QC_VARIANTS in QC_PARTS
+    partitions): K5 against its plain version at one partition's shape,
+    then sample_qc, variant_qc (K5 once per partition), impute_sex and an
+    aggregate_entries on the device tier and on the host evaluator, each
+    timed and held to numpy; split_multi_hts on an HTS MatrixTable of
+    HTS_VARIANTS rows. Returns (the phase's figures, the K5 record, its
+    launches on the variant_qc path, the entry_agg device-op record)."""
+    import os
+    from hail_tpu_torch.ops import _kernels, entry_agg as ea, qc
+    from hail_tpu_torch.stats import hwe
+    out = {}
+    t0 = time.perf_counter()
+    mt, parts = build_qc_mt(hl, rng, QC_SAMPLES, QC_VARIANTS, QC_PARTS)
+    log(f'QC MatrixTable {QC_VARIANTS} x {QC_SAMPLES} in {QC_PARTS} partitions '
+        f'built in {time.perf_counter() - t0:.2f} s')
+
+    # K5 at one partition: (2,048, 10,000), A = 3, DP and GQ
+    p0 = parts[0]
+    packed = (2 | (p0['j'].astype(np.int32) << 3)
+              | (p0['k'].astype(np.int32) << 17))
+    args = (torch.from_numpy(packed).to(dev),
+            torch.from_numpy(p0['gt_m']).to(dev),
+            torch.from_numpy(np.where(p0['dp_m'], -1, p0['dp'])).to(dev),
+            torch.from_numpy(np.where(p0['gq_m'], -1, p0['gq'])).to(dev),
+            3, True, True)
+    got = qc.variant_qc_block(*args)
+    want = qc._variant_qc_ref(*args)
+    torch.cuda.synchronize()
+    err5 = 0.0
+    for key, w in want.items():
+        g = got[key].to(w.dtype)
+        if not torch.equal(g, w):
+            raise AssertionError(f'K5 variant_qc: {key} differs from plain')
+        fin = torch.isfinite(w) if w.is_floating_point() else None
+        d = (g - w) if fin is None else (g - w)[fin]
+        err5 = max(err5, float(d.abs().max()) if d.numel() else 0.0)
+    ms, plain_ms = compare_times(lambda: qc.variant_qc_block(*args),
+                                 lambda: qc._variant_qc_ref(*args))
+    R, C = packed.shape
+    # bytes: packed (4), missing (1), DP and GQ (4 + 4) per entry read once;
+    # per row 8 int32 counts, 8 f64 statistics and 2 x 3 int32 allele counts
+    # written once; its compares and adds per entry are integer work far
+    # below any rate, counted as no operations
+    k5_bytes = 13 * R * C + R * (8 * 4 + 8 * 8 + 2 * 3 * 4)
+    log(f'K5 variant_qc {R} x {C}, A = 3, DP and GQ: bit-equal to plain; '
+        f'kernel {ms:.4f} ms ({k5_bytes / ms / 1e9:.3f} TB/s), plain '
+        f'{plain_ms:.4f} ms')
+    rec = record('variant_qc', 'hail_tpu_torch/csrc/variant_qc.cu',
+                 'hail_tpu/ops/qc.py:22', err5, ms, plain_ms, bound(k5_bytes))
+    del args, got, want
+
+    t0 = time.perf_counter()
+    sq = hl.sample_qc(mt)
+    out['sample_qc_s'] = time.perf_counter() - t0
+    sample_qc_oracle(_qc_struct(sq._stage.cols, 'sample_qc'), parts)
+    log(f'sample_qc: {out["sample_qc_s"]:.3f} s; n_called, hom/het counts, '
+        f'transitions, transversions, DP and GQ mean and min of all '
+        f'{QC_SAMPLES} samples equal numpy')
+
+    # the main path of K5: one launch per partition; beside the call, the
+    # seconds of its device part (copies in and out, K5) and of the host HWE
+    # test, summed over the partitions' threads
+    _kernels.reset_launch_counts()
+    with Spy(qc, 'run_variant_qc_block') as dev_spy, \
+            Spy(hwe, 'hwe_test_vec') as hwe_spy:
+        t0 = time.perf_counter()
+        vq = hl.variant_qc(mt)
+        summary = vq.aggregate_rows(hl.struct(
+            an=hl.agg.sum(vq.variant_qc.AN),
+            low=hl.agg.count_where(vq.variant_qc.call_rate < 0.97)))
+        out['variant_qc_s'] = time.perf_counter() - t0
+    n_qc = dict(_kernels.launches)
+    out['variant_qc_device_part_s'] = dev_spy.total()
+    out['variant_qc_hwe_s'] = hwe_spy.total()
+    if n_qc['hail_variant_qc'] != QC_PARTS:
+        raise AssertionError(f'variant_qc launched K5 {n_qc["hail_variant_qc"]} '
+                             f'times over {QC_PARTS} partitions')
+    an = 0
+    for ctx, part in zip(vq._stage.contexts, parts):
+        q = _qc_struct(vq._stage.partition_fn(ctx).rows, 'variant_qc')
+        variant_qc_oracle(q, part)
+        an += int(q['AN'][0].sum())
+    if summary.an != an:
+        raise AssertionError('variant_qc: the sum of AN differs')
+    log(f'variant_qc: {out["variant_qc_s"]:.3f} s (with an aggregate_rows over '
+        f'its result; {n_qc["hail_variant_qc"]} K5 launches; summed over the '
+        f'partitions\' threads: run_variant_qc_block '
+        f'{out["variant_qc_device_part_s"]:.3f} s, hwe_test_vec '
+        f'{out["variant_qc_hwe_s"]:.3f} s); AC, AN, '
+        f'homozygote counts, n_called, n_het, n_non_ref, call_rate, DP and GQ '
+        f'stats of all {QC_VARIANTS} rows equal numpy')
+
+    t0 = time.perf_counter()
+    sex = hl.impute_sex(mt.GT)
+    f_stat = {_sample_index(r.s): r for r in sex.collect()}
+    out['impute_sex_s'] = time.perf_counter() - t0
+    n_x, exp_x, f_want = impute_sex_oracle(parts, QC_SAMPLES)
+    got_f = np.asarray([f_stat[i].f_stat for i in range(QC_SAMPLES)], float)
+    _eq([f_stat[i].n_called for i in range(QC_SAMPLES)], n_x,
+        'impute_sex n_called')
+    _eq(got_f, f_want, 'impute_sex f_stat', rtol=1e-9)
+    males = sum(f_stat[i].is_female is False for i in range(QC_SAMPLES // 2))
+    females = sum(f_stat[i].is_female is True
+                  for i in range(QC_SAMPLES // 2, QC_SAMPLES))
+    out.update(impute_sex_males=males, impute_sex_females=females)
+    log(f'impute_sex: {out["impute_sex_s"]:.3f} s; f_stat and n_called of all '
+        f'{QC_SAMPLES} samples equal numpy (rtol 1e-9); {males} of '
+        f'{QC_SAMPLES // 2} planted males and {females} of the others called '
+        f'female')
+
+    expr = hl.struct(
+        n=hl.agg.count(), nalt=hl.agg.stats(mt.GT.n_alt_alleles()),
+        deep=hl.agg.count_where(mt.DP > 10),
+        gq_missing=hl.agg.fraction(hl.is_missing(mt.GQ)),
+        gq_min=hl.agg.min(mt.GQ), dp_max=hl.agg.max(mt.DP))
+    # each tier twice: the first call of the device tier in a process
+    # also pays torch's first use of each op
+    with Spy(ea, 'run_device_entry_agg', keep=True) as spy:
+        for key in ('aggregate_entries_device_s', 'aggregate_entries_device_warm_s'):
+            t0 = time.perf_counter()
+            dev_res = mt.aggregate_entries(expr)
+            out[key] = time.perf_counter() - t0
+    if spy.count() != 2 * QC_PARTS:
+        raise AssertionError(f'aggregate_entries: the device tier ran in '
+                             f'{spy.count()} of 2 x {QC_PARTS} partitions')
+    os.environ['HAIL_TPU_NO_DEVICE_AGG'] = '1'
+    try:
+        for key in ('aggregate_entries_host_s', 'aggregate_entries_host_warm_s'):
+            t0 = time.perf_counter()
+            host_res = mt.aggregate_entries(expr)
+            out[key] = time.perf_counter() - t0
+    finally:
+        del os.environ['HAIL_TPU_NO_DEVICE_AGG']
+    called = np.concatenate([~p['gt_m'] for p in parts])
+    nalt = np.concatenate([p['j'] > 0 for p in parts]).astype(np.int64) \
+        + np.concatenate([p['k'] > 0 for p in parts])
+    nv = nalt[called].astype(np.float64)
+    want = dict(
+        n=called.size, nalt_n=nv.size, nalt_sum=nv.sum(),
+        nalt_mean=nv.sum() / nv.size, nalt_min=nv.min(), nalt_max=nv.max(),
+        deep=sum(int(((p['dp'] > 10) & ~p['dp_m']).sum()) for p in parts),
+        gq_missing=sum(int(p['gq_m'].sum()) for p in parts) / called.size,
+        gq_min=min(int(p['gq'][~p['gq_m']].min()) for p in parts),
+        dp_max=max(int(p['dp'][~p['dp_m']].max()) for p in parts))
+    for tier, res in (('device', dev_res), ('host', host_res)):
+        got = dict(n=res.n, nalt_n=res.nalt.n, nalt_sum=res.nalt.sum,
+                   nalt_mean=res.nalt.mean, nalt_min=res.nalt.min,
+                   nalt_max=res.nalt.max, deep=res.deep,
+                   gq_missing=res.gq_missing, gq_min=res.gq_min,
+                   dp_max=res.dp_max)
+        if got != want:
+            raise AssertionError(f'aggregate_entries ({tier}): {got} != {want}')
+    if not math.isclose(dev_res.nalt.stdev, host_res.nalt.stdev, rel_tol=1e-12):
+        raise AssertionError('aggregate_entries: the two tiers\' stdev differ')
+    log(f'aggregate_entries (count, stats of n_alt_alleles, count_where DP > '
+        f'10, fraction of GQ missing, min GQ, max DP): device tier '
+        f'{out["aggregate_entries_device_s"]:.3f} s, again '
+        f'{out["aggregate_entries_device_warm_s"]:.3f} s (in every partition), '
+        f'host evaluator {out["aggregate_entries_host_s"]:.3f} s, again '
+        f'{out["aggregate_entries_host_warm_s"]:.3f} s; both equal numpy')
+    # the reduction alone, on the tensors of the last partition it ran on
+    a_mt, a_mb, _, leaves, plans, kernel = spy.last['run_device_entry_agg'][0]
+    env, filt = ea.partition_tensors(a_mt, a_mb, leaves, dev)
+    agg_ms = timed_ms(lambda: kernel(env, filt))
+    # bytes: the six leaves (GT, DP, GQ values and masks: 4 + 1 + 4 + 1 + 4
+    # + 1) and the filtered-entry mask (1) read once per entry
+    Ra, Ca = filt.shape
+    bnd = bound(16 * Ra * Ca)
+    op = dict(name='entry_agg.make_kernel', source='hail_tpu_torch/ops/entry_agg.py',
+              replaces='hail_tpu/ops/entry_agg.py:241',
+              shape=f'{Ra} variants x {Ca} samples, 6 aggregators',
+              launches_per_call=QC_PARTS, ms=agg_ms, **bnd,
+              share_of_bound=bnd['bound_ms'] / agg_ms, yardstick=None,
+              yardstick_ms=None)
+    log(f'entry_agg reduction on one partition: {agg_ms:.3f} ms, bound '
+        f'{bnd["bound_ms"]:.4f} ms')
+    del env, filt, a_mt, a_mb, spy, mt, sq, vq, parts
+
+    hmt, hparts = hts_mt(hl, rng, QC_SAMPLES, HTS_VARIANTS)
+    t0 = time.perf_counter()
+    split = hl.split_multi_hts(hmt)
+    mbs = [split._stage.partition_fn(c) for c in split._stage.contexts]
+    out['split_multi_hts_s'] = time.perf_counter() - t0
+    n_out = sum(mb.n_rows for mb in mbs)
+    for mb, part in zip(mbs, hparts):
+        split_hts_oracle(mb, part)
+    log(f'split_multi_hts of {HTS_VARIANTS} x {QC_SAMPLES} (GT, AD, DP, GQ, PL; '
+        f'{n_out - HTS_VARIANTS} triallelic): {out["split_multi_hts_s"]:.3f} s '
+        f'for its {n_out} rows; GT, AD, PL and GQ equal numpy')
+    return out, rec, n_qc, op
+
+
 def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
     import hail_tpu_torch as hl
@@ -1748,16 +2237,23 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     rel, rel_ops = phase_relatedness(hl, dev, rng)
     rel['vcf'] = phase_vcf(hl, mt_ibd)
     device_ops += rel_ops
+    # QC: K5 on variant_qc's path, sample_qc, impute_sex, the entry-agg
+    # device tier and split_multi_hts
+    qc, k5, n_qc, agg_op = phase_qc(hl, dev, rng)
+    records.append(k5)
+    device_ops.append(agg_op)
     per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
     per_call['hail_ibs_counts'] = n_ibd['hail_ibs_counts']
+    per_call['hail_variant_qc'] = n_qc['hail_variant_qc']
     names = {'unpack_gt_2bit': 'hail_unpack_gt_2bit',
              'linreg_exact_pass': 'hail_linreg_exact_pass',
              'linreg_i8_sums': 'hail_linreg_i8_sums',
-             'ibs_counts': 'hail_ibs_counts'}
+             'ibs_counts': 'hail_ibs_counts',
+             'variant_qc': 'hail_variant_qc'}
     for rec in records:
         c_name = names[rec['name']]
         rec['launches'] = sum(n[c_name] for n in (n_gwas, n_f32, n_glm, n_ld,
-                                                  n_ibd))
+                                                  n_ibd, n_qc))
         rec['launches_per_call'] = per_call[c_name]
         if not rec['launches']:
             raise AssertionError(f'the main path never launched {rec["name"]}')
@@ -1771,7 +2267,8 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     if loaded:
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
-    return records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel
+    return (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
+            qc)
 
 
 def li_pair(dev, nalt, miss):
@@ -1796,7 +2293,8 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel = run(dev)
+    (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
+     qc) = run(dev)
     log(f'run: {time.perf_counter() - t0:.1f} s, the kernels\' build included')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -1805,7 +2303,7 @@ def main() -> int:
                       'glm_variants_per_s': glm, 'glm_seconds': glm_s,
                       'ibd_seconds': ibd, 'ld_prune': ld,
                       'blockmatrix_methods': bm_methods,
-                      'relatedness': rel}))
+                      'relatedness': rel, 'qc_seconds': qc}))
     op_order = ('name', 'source', 'replaces', 'shape', 'launches_per_call',
                 'ms', 'bound_ms', 'bound_by', 'bound_unit', 'share_of_bound',
                 'yardstick', 'yardstick_ms')

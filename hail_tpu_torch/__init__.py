@@ -110,6 +110,8 @@ from .expr import aggregators as agg
 from .expr import scans as scan
 from . import methods as _methods_mod
 from .methods import *  # noqa: F401,F403
+from .methods.statgen import (_linear_regression_rows_nd,
+                              _logistic_regression_rows_nd)
 from .methods.pca import (_blanczos_pca, _hwe_normalized_blanczos,
                           _pca_and_moments, _spectral_moments)
 from . import linalg

@@ -38,55 +38,14 @@ COPIED = [
     'io/__init__.py', 'io/native.py', 'io/hail_format.py', 'io/vcf.py',
     'io/bgen.py', 'io/avro.py',
     'native/__init__.py', 'native/hail_native.cpp',
-    'methods/impex.py', 'nd/__init__.py',
+    'methods/impex.py', 'methods/qc.py', 'nd/__init__.py',
 ]
 
+# `import`/`from` statements and the by-name imports `__import__('…')`,
+# `_imp('…')` and `importlib.import_module('…')`
 _IMPORT_RE = re.compile(
-    r"""(\bimport |\bfrom |__import__\(['"]|_imp\(['"])hail_tpu\b""")
-
-_ENTRY_AGG_OLD = '''        import os
-        if os.environ.get('HAIL_TPU_NO_DEVICE_AGG') == '1' or not agg_nodes:
-            return None
-        from .ops import entry_agg as ea
-        planned = ea.plan_device_entry_agg(agg_nodes)
-        if planned is None:
-            return None
-        leaves, plans = planned
-        jitted = ea.cached_kernel(agg_nodes, plans, sorted(leaves.keys()))
-
-        def part(i_ctx):
-            i, ctx = i_ctx
-            mb = self._stage.partition_fn(ctx)
-            if mb.n_rows == 0 or self._stage.n_cols == 0:
-                return aggmod.partial_aggregate(
-                    agg_nodes, self._entry_env(mb, i), (0, 1),
-                    extra_include=MatrixTable._unfiltered_mask(mb))
-            st = ea.run_device_entry_agg(self, mb, i, leaves, plans, jitted)
-            if st is None:
-                return aggmod.partial_aggregate(
-                    agg_nodes, self._entry_env(mb, i), (0, 1),
-                    extra_include=MatrixTable._unfiltered_mask(mb))
-            return st
-
-        partials = Env.backend().map_collect(
-            list(enumerate(self._stage.contexts)), part)
-        from .table import _tree_combine
-        state = _tree_combine(agg_nodes, partials)
-        col = aggmod.finalize_aggregate(e._ir, agg_nodes, state,
-                                        self._globals_env())
-        vals = col.to_pylist()
-        out = vals[0] if vals else None
-        if not _localize:
-            from .expr.functions import literal, missing
-            return (literal(out, e.dtype) if out is not None
-                    else missing(e.dtype),)
-        return (out,)
-'''
-_ENTRY_AGG_NEW = '''        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 4): the host
-        # evaluator runs every entry aggregation, as the reference's does
-        # under HAIL_TPU_NO_DEVICE_AGG=1.
-        return None
-'''
+    r"""(\bimport |\bfrom |__import__\(['"]|_imp\(['"]"""
+    r"""|\bimport_module\(['"])hail_tpu\b""")
 
 _DEVICE_SORT_OLD = '''    from .ops.device_sort import device_range_sort, sortable_single_key
     sk = sortable_single_key(batches, specs)
@@ -243,7 +202,6 @@ _MEMO_SIZE_NEW = '''        c = cols.pop()
 EDITS = [
     ('backend/backend.py', _CACHE_FLAG_OLD, _CACHE_FLAG_NEW),
     ('ir/memcache.py', _MEMO_SIZE_OLD, _MEMO_SIZE_NEW),
-    ('matrixtable.py', _ENTRY_AGG_OLD, _ENTRY_AGG_NEW),
     ('table.py', _DEVICE_SORT_OLD, _DEVICE_SORT_NEW),
     ('stats/__init__.py', _STATS_INIT_OLD, _STATS_INIT_NEW),
     ('table.py', _MULTIHOST_SORT_OLD, _MULTIHOST_SORT_NEW),
@@ -265,7 +223,9 @@ def _copy_file(src: str, dst: str) -> None:
         f.write(_IMPORT_RE.sub(r'\1hail_tpu_torch', text))
 
 
-def copy_all() -> None:
+def copy_all(dst: str = DST) -> None:
+    """Copy into `dst` (the port's package; a test copies elsewhere and
+    compares)."""
     for rel in COPIED:
         src = os.path.join(SRC, rel)
         if os.path.isdir(src):
@@ -275,11 +235,11 @@ def copy_all() -> None:
                     if fn.endswith('.pyc'):
                         continue
                     s = os.path.join(dirpath, fn)
-                    _copy_file(s, os.path.join(DST, os.path.relpath(s, SRC)))
+                    _copy_file(s, os.path.join(dst, os.path.relpath(s, SRC)))
         else:
-            _copy_file(src, os.path.join(DST, rel))
+            _copy_file(src, os.path.join(dst, rel))
     for rel, old, new in EDITS:
-        path = os.path.join(DST, rel)
+        path = os.path.join(dst, rel)
         with open(path, encoding='utf-8') as f:
             text = f.read()
         n = text.count(old)

@@ -1019,10 +1019,43 @@ class MatrixTable:
         the whole seqOp fuses into one jitted jnp reduction per partition.
         Returns (result,) or None to fall back to the host evaluator.
         Disable with HAIL_TPU_NO_DEVICE_AGG=1."""
-        # ops/entry_agg is not ported yet (ROADMAP queue 1, item 4): the host
-        # evaluator runs every entry aggregation, as the reference's does
-        # under HAIL_TPU_NO_DEVICE_AGG=1.
-        return None
+        import os
+        if os.environ.get('HAIL_TPU_NO_DEVICE_AGG') == '1' or not agg_nodes:
+            return None
+        from .ops import entry_agg as ea
+        planned = ea.plan_device_entry_agg(agg_nodes)
+        if planned is None:
+            return None
+        leaves, plans = planned
+        jitted = ea.cached_kernel(agg_nodes, plans, sorted(leaves.keys()))
+
+        def part(i_ctx):
+            i, ctx = i_ctx
+            mb = self._stage.partition_fn(ctx)
+            if mb.n_rows == 0 or self._stage.n_cols == 0:
+                return aggmod.partial_aggregate(
+                    agg_nodes, self._entry_env(mb, i), (0, 1),
+                    extra_include=MatrixTable._unfiltered_mask(mb))
+            st = ea.run_device_entry_agg(self, mb, i, leaves, plans, jitted)
+            if st is None:
+                return aggmod.partial_aggregate(
+                    agg_nodes, self._entry_env(mb, i), (0, 1),
+                    extra_include=MatrixTable._unfiltered_mask(mb))
+            return st
+
+        partials = Env.backend().map_collect(
+            list(enumerate(self._stage.contexts)), part)
+        from .table import _tree_combine
+        state = _tree_combine(agg_nodes, partials)
+        col = aggmod.finalize_aggregate(e._ir, agg_nodes, state,
+                                        self._globals_env())
+        vals = col.to_pylist()
+        out = vals[0] if vals else None
+        if not _localize:
+            from .expr.functions import literal, missing
+            return (literal(out, e.dtype) if out is not None
+                    else missing(e.dtype),)
+        return (out,)
 
     def aggregate_cols(self, expr, _localize: bool = True) -> Any:
         e = to_expr(expr)

@@ -10,8 +10,11 @@ GT entry pair, with the host-faithful stats/glmfit.py loop as the
 fallback and oracle; the BlockMatrix tier (`ld_prune` over the same cached
 pair, `genetic_relatedness_matrix` by the exact int8 GRM (ops/grm.py) on
 the card, `realized_relationship_matrix`, `row_correlation`, `ld_matrix`);
-and `balding_nichols_model`, host code on the Threefry stream of
-ir/random.
+`balding_nichols_model`, host code on the Threefry stream of ir/random;
+and the host code of the QC pipeline copied from the reference
+(`split_multi`, `split_multi_hts`, `filter_alleles`, `filter_alleles_hts`,
+`impute_sex`, `lambda_gc`) with the `_nd` aliases of the two row
+regressions.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ import torch
 
 from .. import types as ht
 from ..context import Env
+from ..expr import aggregators as agg
 from ..expr import functions as F
 from ..expr.expression import Expression, to_expr
-from ..genetics.call import pack_diploid
+from ..genetics.call import (J_SHIFT, K_SHIFT, PLOIDY_MASK, calls_allele_j,
+                             calls_allele_k, pack_diploid)
 from ..ir import columns as C
 from ..ir.columns import (Batch, DenseArrayColumn, LocusColumn, ObjectColumn,
                           PrimitiveColumn)
@@ -1825,3 +1830,469 @@ def balding_nichols_model(n_populations: int, n_samples: int, n_variants: int,
                                    row_t, col_t, entry_t, contexts, pf,
                                    part_bounds))
 
+
+# ---------------------------------------------------------------------------
+# split_multi
+# ---------------------------------------------------------------------------
+
+def split_multi(ds: MatrixTable, keep_star: bool = False, left_aligned: bool = False,
+                *, permit_shuffle: bool = False) -> MatrixTable:
+    """Split multiallelic variants; GT downcoded per alt (reference
+    methods/statgen.py split_multi). Adds was_split/a_index row fields."""
+    return _split_multi_impl(ds, keep_star, hts=False)
+
+
+def split_multi_hts(ds: MatrixTable, keep_star: bool = False, left_aligned: bool = False,
+                    vep_root: str = 'vep', *, permit_shuffle: bool = False) -> MatrixTable:
+    """split_multi with HTS entry-field recoding (AD/DP/GQ/PL)."""
+    return _split_multi_impl(ds, keep_star, hts=True)
+
+
+def filter_alleles(mt: MatrixTable, f) -> MatrixTable:
+    """Filter alternate alleles; rows whose alts are all removed are dropped.
+    Adds old_locus/old_alleles/old_to_new/new_to_old row fields; entries are
+    NOT updated (reference methods/statgen.py:4295 filter_alleles)."""
+    return _filter_alleles_impl(mt, f, mode=None)
+
+
+def filter_alleles_hts(mt: MatrixTable, f, subset: bool = False) -> MatrixTable:
+    """filter_alleles with GATK entry-field updates (GT/AD/DP/GQ/PL) using the
+    subset or downcode algorithm (reference methods/statgen.py:4395
+    filter_alleles_hts)."""
+    return _filter_alleles_impl(mt, f, mode='subset' if subset else 'downcode')
+
+
+def _filter_alleles_impl(mt: MatrixTable, f, mode: Optional[str]) -> MatrixTable:
+    # evaluate the per-allele predicate as a row expression (allele 0 kept)
+    alleles_e = mt.alleles
+    incl = F.range_(0, F.len_(alleles_e)).map(
+        lambda i: (i == 0) | F.coalesce(f(alleles_e[i], i), False))
+    mt = mt.annotate_rows(__allele_inclusion=incl)
+    st = mt._stage
+    lt = st.row_type['locus']
+    new_row_t = (st.row_type._drop_fields(['__allele_inclusion'])
+                 ._insert_field('old_locus', lt)
+                 ._insert_field('old_alleles', ht.tarray(ht.tstr))
+                 ._insert_field('old_to_new', ht.tarray(ht.tint32))
+                 ._insert_field('new_to_old', ht.tarray(ht.tint32)))
+
+    def pf(mb: MatrixBatch, pi: int) -> MatrixBatch:
+        alleles_l = mb.rows.columns['alleles'].to_pylist()
+        incl_l = mb.rows.columns['__allele_inclusion'].to_pylist()
+        loci_l = mb.rows.columns['locus'].to_pylist()
+        keep_rows = []
+        new_loci, new_alleles = [], []
+        n2o_l, o2n_l = [], []
+        for r, (als, inc) in enumerate(zip(alleles_l, incl_l)):
+            kept = [i for i, k in enumerate(inc) if k]
+            if len(kept) < 2:
+                continue
+            o2n = [None] * len(als)
+            for ni, oi in enumerate(kept):
+                o2n[oi] = ni
+            mr = F.eval_expr(F.min_rep(
+                to_expr(loci_l[r]),
+                to_expr([als[i] for i in kept], ht.tarray(ht.tstr))))
+            keep_rows.append(r)
+            new_loci.append(mr.locus)
+            new_alleles.append(mr.alleles)
+            n2o_l.append(kept)
+            o2n_l.append(o2n)
+        idx = np.asarray(keep_rows, dtype=np.int64)
+        Rn = len(idx)
+        rows_cols = {}
+        for kf, c in mb.rows.columns.items():
+            if kf == '__allele_inclusion':
+                continue
+            if kf == 'locus':
+                rows_cols[kf] = C.from_pylist(lt, new_loci)
+            elif kf == 'alleles':
+                rows_cols[kf] = C.from_pylist(ht.tarray(ht.tstr), new_alleles)
+            else:
+                rows_cols[kf] = c.gather(idx)
+        rows_cols['old_locus'] = mb.rows.columns['locus'].gather(idx)
+        rows_cols['old_alleles'] = mb.rows.columns['alleles'].gather(idx)
+        rows_cols['old_to_new'] = C.from_pylist(ht.tarray(ht.tint32), o2n_l)
+        rows_cols['new_to_old'] = C.from_pylist(ht.tarray(ht.tint32), n2o_l)
+        rows = Batch(rows_cols, Rn)
+
+        ents = {kf: c.gather(idx, axis=0) for kf, c in mb.entries.items()}
+        if mode is not None and 'GT' in ents and Rn > 0:
+            ents = _filter_alleles_update_entries(
+                ents, n2o_l, o2n_l,
+                [len(alleles_l[r]) for r in keep_rows], mode)
+        return MatrixBatch(rows, ents)
+
+    return MatrixTable(st.map_partitions(pf, new_row_type=new_row_t))
+
+
+def _filter_alleles_update_entries(ents, n2o_l, o2n_l, n_old_alleles, mode):
+    """Apply the subset/downcode GATK entry updates per row, matching the
+    reference expressions exactly (methods/statgen.py:4601-4667):
+
+    * subset: PL'[ni] = PL[old gt index via new_to_old], shifted so min is 0;
+      GT = argmin(PL') if unique else missing; GT/PL/GQ missing when PL is.
+    * downcode: PL'[ni] = min over old genotypes downcoding to ni (NO shift);
+      GT = index remap via old_to_new (missing alleles -> ref);
+      AD = sums over old alleles mapping to each new index.
+    * GQ = gq_from_pl(PL') (m/m2 start at 99); missing when PL missing.
+    """
+    gt_c = ents['GT']
+    packed = np.asarray(gt_c.values)
+    gt_m = gt_c.missing_mask() if gt_c.missing is not None else np.zeros(packed.shape, bool)
+    Rn, Cn = packed.shape
+    pl_c = ents.get('PL')
+    ad_c = ents.get('AD')
+    have_pl = isinstance(pl_c, DenseArrayColumn)
+    have_ad = isinstance(ad_c, DenseArrayColumn)
+    INF = np.iinfo(np.int64).max
+    new_gt = packed.copy()
+    new_gt_m = gt_m.copy()
+    if have_pl:
+        pl_v = pl_c.values
+        pl_len = pl_c.lengths
+        pl_m = pl_c.missing_mask() if pl_c.missing is not None else np.zeros((Rn, Cn), bool)
+        max_new_w = max(len(k) * (len(k) + 1) // 2 for k in n2o_l)
+        new_pl = np.zeros((Rn, Cn, max_new_w), dtype=pl_v.dtype)
+        new_pl_len = np.zeros((Rn, Cn), np.int32)
+        gq_new = np.zeros((Rn, Cn), np.int32)
+    if have_ad:
+        ad_v = ad_c.values
+        ad_m = ad_c.missing_mask() if ad_c.missing is not None else np.zeros((Rn, Cn), bool)
+        max_new_a = max(len(k) for k in n2o_l)
+        new_ad = np.zeros((Rn, Cn, max_new_a), dtype=ad_v.dtype)
+        new_ad_len = np.zeros((Rn, Cn), np.int32)
+    j_all = calls_allele_j(packed)
+    k_all = calls_allele_k(packed)
+    for r in range(Rn):
+        kept = n2o_l[r]
+        o2n = o2n_l[r]
+        A_old = n_old_alleles[r]
+        A_new = len(kept)
+        W_new = A_new * (A_new + 1) // 2
+        o2n_nona = np.asarray([o2n[i] if o2n[i] is not None else 0
+                               for i in range(A_old)], dtype=np.int64)
+        if have_ad:
+            new_ad_len[r] = A_new
+            if mode == 'subset':
+                for ni, oi in enumerate(kept):
+                    if oi < ad_v.shape[2]:
+                        new_ad[r, :, ni] = ad_v[r, :, oi]
+            else:
+                for oi in range(min(A_old, ad_v.shape[2])):
+                    new_ad[r, :, o2n_nona[oi]] += ad_v[r, :, oi]
+        if mode == 'downcode':
+            # GT := index remap via old_to_new (filtered alleles -> ref)
+            jr = np.clip(j_all[r], 0, A_old - 1)
+            kr = np.clip(k_all[r], 0, A_old - 1)
+            nj = o2n_nona[jr]
+            nk = o2n_nona[kr]
+            lo = np.minimum(nj, nk)
+            hi = np.maximum(nj, nk)
+            new_gt[r] = ((packed[r] & (PLOIDY_MASK | 0x4))
+                         | (lo << J_SHIFT) | (hi << K_SHIFT)).astype(np.int32)
+        if have_pl:
+            new_pl_len[r] = W_new
+            acc = np.full((W_new, Cn), INF, dtype=np.int64)
+            if mode == 'subset':
+                for ny in range(A_new):
+                    for nx in range(ny + 1):
+                        ox, oy = kept[nx], kept[ny]
+                        if ox > oy:
+                            ox, oy = oy, ox
+                        gi = oy * (oy + 1) // 2 + ox
+                        ngi = ny * (ny + 1) // 2 + nx
+                        if gi < pl_v.shape[2]:
+                            acc[ngi] = np.where(gi < pl_len[r],
+                                                pl_v[r, :, gi].astype(np.int64), INF)
+            else:
+                for y in range(A_old):
+                    for x in range(y + 1):
+                        gi = y * (y + 1) // 2 + x
+                        if gi >= pl_v.shape[2]:
+                            continue
+                        nx, ny = o2n_nona[x], o2n_nona[y]
+                        if nx > ny:
+                            nx, ny = ny, nx
+                        ngi = ny * (ny + 1) // 2 + nx
+                        col = np.where(gi < pl_len[r], pl_v[r, :, gi].astype(np.int64), INF)
+                        acc[ngi] = np.minimum(acc[ngi], col)
+            acc = np.where(acc == INF, 0, acc)
+            if mode == 'subset':
+                acc = acc - acc.min(axis=0)[None, :]
+                # GT := argmin of new PL, missing unless unique
+                amin = acc.min(axis=0)
+                is_min = acc == amin[None, :]
+                unique = is_min.sum(axis=0) == 1
+                best = np.argmin(acc, axis=0)
+                by = ((np.sqrt(8 * best.astype(np.float64) + 1) - 1) / 2).astype(np.int64)
+                # correct float rounding: ensure triangle(by) <= best
+                by = np.where(by * (by + 1) // 2 > best, by - 1, by)
+                by = np.where((by + 1) * (by + 2) // 2 <= best, by + 1, by)
+                bx = best - by * (by + 1) // 2
+                gp = (2 | (bx << J_SHIFT) | (by << K_SHIFT)).astype(np.int32)
+                pl_ok = ~pl_m[r]
+                new_gt[r] = np.where(pl_ok & unique, gp, new_gt[r])
+                new_gt_m[r] = np.where(~(pl_ok & unique), True, new_gt_m[r])
+            new_pl[r, :, :W_new] = acc.T.astype(pl_v.dtype)
+            # GQ := gq_from_pl(new PL) (Genotype.scala:60 — m, m2 start at 99)
+            a99 = acc
+            m1 = np.minimum(a99.min(axis=0), 99)
+            mask_min = a99 == a99.min(axis=0, keepdims=True)
+            cnt_min = mask_min.sum(axis=0)
+            second = np.where(mask_min, INF, a99).min(axis=0) if W_new > 1 \
+                else np.full(Cn, INF, np.int64)
+            m2v = np.minimum(np.where(cnt_min > 1, a99.min(axis=0), second), 99)
+            gq_new[r] = (m2v - m1).astype(np.int32)
+    ents['GT'] = PrimitiveColumn(ht.tcall, new_gt, new_gt_m)
+    if have_ad:
+        ents['AD'] = DenseArrayColumn(ht.tarray(ht.tint32), new_ad, new_ad_len,
+                                      None, ad_m)
+    if have_pl:
+        ents['PL'] = DenseArrayColumn(ht.tarray(ht.tint32), new_pl, new_pl_len,
+                                      None, pl_m)
+        if 'GQ' in ents:
+            gq_miss = pl_m.copy()
+            ents['GQ'] = PrimitiveColumn(ht.tint32, gq_new, gq_miss)
+    return ents
+
+
+def _split_multi_impl(ds: MatrixTable, keep_star: bool, hts: bool) -> MatrixTable:
+    st = ds._stage
+    entry_fields = st.entry_type.fields
+    new_row_t = st.row_type._insert_field('was_split', ht.tbool)._insert_field('a_index', ht.tint32)
+
+    def f(mb: MatrixBatch, pi: int) -> MatrixBatch:
+        alleles_l = mb.rows.columns['alleles'].to_pylist()
+        # expansion: one output row per (row, alt)
+        out_row_idx = []
+        out_a_index = []
+        out_alleles = []
+        out_locus = []
+        out_was_split = []
+        loci_l = mb.rows.columns['locus'].to_pylist()
+        for i, als in enumerate(alleles_l):
+            n_alt = len(als) - 1 if als else 0
+            for a in range(1, n_alt + 1):
+                if als[a] == '*' and not keep_star:
+                    continue
+                out_row_idx.append(i)
+                out_a_index.append(a)
+                mr = F.eval_expr(F.min_rep(
+                    to_expr(loci_l[i]),
+                    to_expr([als[0], als[a]], ht.tarray(ht.tstr))))
+                out_alleles.append(mr.alleles)
+                out_locus.append(mr.locus)
+                out_was_split.append(n_alt > 1)
+        idx = np.asarray(out_row_idx, dtype=np.int64)
+        aidx = np.asarray(out_a_index, dtype=np.int32)
+        Rn = len(idx)
+        rows_cols = {}
+        for kf, c in mb.rows.columns.items():
+            if kf == 'alleles':
+                arr = np.empty(Rn, dtype=object)
+                arr[:] = out_alleles
+                rows_cols[kf] = ObjectColumn(ht.tarray(ht.tstr), arr)
+            elif kf == 'locus':
+                # min_rep may advance the position (left trim)
+                rows_cols[kf] = C.from_pylist(st.row_type['locus'], out_locus)
+            else:
+                rows_cols[kf] = c.gather(idx)
+        rows_cols['was_split'] = PrimitiveColumn(ht.tbool, np.asarray(out_was_split, dtype=bool))
+        rows_cols['a_index'] = PrimitiveColumn(ht.tint32, aidx)
+        rows = Batch(rows_cols, Rn)
+
+        ents = {}
+        aidx2 = aidx[:, None]
+        for kf, c in mb.entries.items():
+            if kf == 'GT' and st.entry_type[kf] == ht.tcall:
+                packed = np.asarray(c.values)[idx]
+                j = calls_allele_j(packed)
+                k2 = calls_allele_k(packed)
+                nj = (j == aidx2).astype(np.int32)
+                nk = (k2 == aidx2).astype(np.int32)
+                # unphased DIPLOID downcoded calls are canonically sorted
+                # (hl.downcode); haploid calls keep their single allele in j
+                sortable = ((packed & 0x4) == 0) & ((packed & PLOIDY_MASK) == 2)
+                lo = np.where(sortable, np.minimum(nj, nk), nj)
+                hi = np.where(sortable, np.maximum(nj, nk), nk)
+                newp = ((packed & (PLOIDY_MASK | 0x4)) | (lo << J_SHIFT) | (hi << K_SHIFT)).astype(np.int32)
+                m = c.missing_mask()[idx] if c.missing is not None else None
+                ents[kf] = PrimitiveColumn(ht.tcall, newp, m)
+            elif hts and kf == 'AD' and isinstance(c, DenseArrayColumn):
+                vals = c.values[idx]
+                lengths = c.lengths[idx]
+                W_ad = vals.shape[-1]
+                inlen = np.arange(W_ad)[None, None, :] < lengths[..., None]
+                total = np.where(inlen, vals, 0).sum(axis=-1)
+                sel_ix = np.broadcast_to(np.minimum(aidx2, W_ad - 1)[..., None],
+                                         vals.shape[:-1] + (1,))
+                asel = np.take_along_axis(vals, sel_ix, axis=-1)[..., 0]
+                asel = np.where(aidx2 < lengths, asel, 0)
+                new_vals = np.stack([total - asel, asel], axis=-1).astype(vals.dtype)
+                ents[kf] = DenseArrayColumn(ht.tarray(ht.tint32), new_vals,
+                                            np.full(new_vals.shape[:-1], 2, np.int32),
+                                            None, c.missing_mask()[idx] if c.missing is not None else None)
+            elif hts and kf == 'PL' and isinstance(c, DenseArrayColumn):
+                # ploidy-aware downcode, matching the reference expression
+                # (methods/statgen.py split_multi_hts): diploid entries get
+                # [min PL over pairs downcoding to i] for i in 0..2; haploid
+                # entries get length-2 [min PL over non-a alleles, PL[a]];
+                # entries with missing GT get missing PL (if_else on missing)
+                vals = c.values[idx]
+                plen = c.lengths[idx]
+                m = c.missing_mask()[idx] if c.missing is not None else \
+                    np.zeros(vals.shape[:2], bool)
+                Rn2, Cn, W = vals.shape
+                na = np.asarray([len(a) for a in alleles_l], dtype=np.int32)[idx]
+                if 'GT' in mb.entries:
+                    gt_p = np.asarray(mb.entries['GT'].values)[idx]
+                    gt_m = (mb.entries['GT'].missing_mask()[idx]
+                            if mb.entries['GT'].missing is not None
+                            else np.zeros(gt_p.shape, bool))
+                    diploid = ((gt_p & PLOIDY_MASK) == 2) & ~gt_m
+                    haploid = ((gt_p & PLOIDY_MASK) == 1) & ~gt_m
+                else:
+                    diploid = np.ones((Rn2, Cn), bool)
+                    haploid = np.zeros((Rn2, Cn), bool)
+                    gt_m = np.zeros((Rn2, Cn), bool)
+                INF = np.iinfo(np.int64).max
+                v64 = vals.astype(np.int64)
+                gi_ix = np.arange(W)[None, None, :]
+                valid = gi_ix < plen[..., None]
+                vmask = np.where(valid, v64, INF)
+                mins_d = np.full((3, Rn2, Cn), INF, dtype=np.int64)
+                mins_h = np.full((2, Rn2, Cn), INF, dtype=np.int64)
+                for r in range(Rn2):
+                    A = int(na[r])
+                    a = int(aidx[r])
+                    for y in range(A):
+                        # haploid: allele y downcodes to int(y == a)
+                        if y < W:
+                            hc = 1 if y == a else 0
+                            mins_h[hc, r] = np.minimum(mins_h[hc, r], vmask[r, :, y])
+                        for x2 in range(y + 1):
+                            gi = y * (y + 1) // 2 + x2
+                            if gi >= W:
+                                continue
+                            dc = (1 if x2 == a else 0) + (1 if y == a else 0)
+                            mins_d[dc, r] = np.minimum(mins_d[dc, r], vmask[r, :, gi])
+                new_vals = np.zeros((Rn2, Cn, 3), dtype=vals.dtype)
+                for d2 in range(3):
+                    sel = np.where(diploid, mins_d[d2],
+                                   mins_h[d2] if d2 < 2 else 0)
+                    new_vals[..., d2] = np.where(sel == INF, 0, sel).astype(vals.dtype)
+                new_len = np.where(diploid, 3, 2).astype(np.int32)
+                new_miss = m | gt_m
+                ents[kf] = DenseArrayColumn(ht.tarray(ht.tint32), new_vals,
+                                            new_len, None, new_miss)
+                if 'GQ' in mb.entries:
+                    # GQ := gq_from_pl(new PL) when PL defined, else old GQ
+                    # (reference Genotype.scala:60 gqFromPL: m=m2=99 init)
+                    w_ix = np.arange(3)[None, None, :]
+                    pl_valid = w_ix < new_len[..., None]
+                    pl64 = np.where(pl_valid, new_vals.astype(np.int64), INF)
+                    m1 = np.minimum(pl64.min(axis=-1), 99)
+                    second = np.where(pl64 == pl64.min(axis=-1, keepdims=True),
+                                      INF, pl64)
+                    # handle duplicates of the min: count occurrences
+                    min_cnt = (pl64 == pl64.min(axis=-1, keepdims=True)).sum(-1)
+                    m2v = np.where(min_cnt > 1, pl64.min(axis=-1),
+                                   second.min(axis=-1))
+                    m2v = np.minimum(m2v, 99)
+                    gq_new = (m2v - m1).astype(np.int32)
+                    gq_c = mb.entries['GQ']
+                    gq_old = np.asarray(gq_c.values)[idx]
+                    gq_old_m = (gq_c.missing_mask()[idx]
+                                if gq_c.missing is not None
+                                else np.zeros(gq_old.shape, bool))
+                    gq_vals = np.where(~new_miss, gq_new, gq_old).astype(np.int32)
+                    gq_miss = new_miss & gq_old_m
+                    ents['GQ'] = PrimitiveColumn(ht.tint32, gq_vals, gq_miss)
+            elif kf == 'GQ' and 'PL' in mb.entries and hts:
+                pass  # recomputed alongside PL above
+            elif hts and kf == 'PGT' and st.entry_type[kf] == ht.tcall:
+                packed = np.asarray(c.values)[idx]
+                j = calls_allele_j(packed)
+                k2 = calls_allele_k(packed)
+                nj = (j == aidx2).astype(np.int32)
+                nk = (k2 == aidx2).astype(np.int32)
+                newp = ((packed & (PLOIDY_MASK | 0x4)) | (nj << J_SHIFT) | (nk << K_SHIFT)).astype(np.int32)
+                m = c.missing_mask()[idx] if c.missing is not None else None
+                ents[kf] = PrimitiveColumn(ht.tcall, newp, m)
+            else:
+                ents[kf] = c.gather(idx, axis=0)
+        return MatrixBatch(rows, ents)
+
+    st2 = st.map_partitions(f, new_row_type=new_row_t)
+    return MatrixTable(st2)
+
+
+# ---------------------------------------------------------------------------
+# impute_sex
+# ---------------------------------------------------------------------------
+
+def impute_sex(call_expr, aaf_threshold: float = 0.0, include_par: bool = False,
+               female_threshold: float = 0.2, male_threshold: float = 0.8,
+               aaf: Optional[str] = None) -> Table:
+    """Impute sample sex from X-chromosome inbreeding (reference
+    methods/statgen.impute_sex)."""
+    e = to_expr(call_expr)
+    mt = e._indices.source
+    mt = mt.annotate_rows(__aaf=agg.call_stats(e, mt.alleles).AF[1])
+    locus = mt.locus
+    in_x = locus.in_x_nonpar() if not include_par else (locus.in_x_nonpar() | locus.in_x_par())
+    mtx = mt.filter_rows(in_x & (mt.__aaf > aaf_threshold))
+    ib = mtx.annotate_cols(__ib=agg.inbreeding(mtx._rebind(e), mtx.__aaf)).cols()
+    t = ib.select(
+        is_female=F.if_else(ib.__ib.f_stat < female_threshold, True,
+                            F.if_else(ib.__ib.f_stat > male_threshold, False,
+                                      F.missing(ht.tbool))),
+        f_stat=ib.__ib.f_stat,
+        n_called=ib.__ib.n_called,
+        expected_homs=ib.__ib.expected_homs,
+        observed_homs=ib.__ib.observed_homs,
+    )
+    return t
+
+
+# ---------------------------------------------------------------------------
+# genomic control
+# ---------------------------------------------------------------------------
+
+def lambda_gc(p_value, approximate: bool = True):
+    """Genomic-control lambda from a p-value row expression (reference
+    methods.lambda_gc)."""
+    import scipy.stats as st
+    e = to_expr(p_value)
+    src = e._indices.source
+    if isinstance(src, MatrixTable):
+        vals = src.rows()._collect_expr(e)
+    else:
+        vals = src._collect_expr(e)
+    # reference _lambda_gc_agg filters to defined, non-NaN p in [0, 1]
+    vals = np.asarray([v for v in vals if v is not None], dtype=np.float64)
+    vals = vals[~np.isnan(vals) & (vals >= 0) & (vals <= 1)]
+    chi2 = st.chi2.isf(vals, 1)
+    return float(np.median(chi2) / st.chi2.ppf(0.5, 1))
+
+
+# ndarray-based regression variants are the same computation on this backend
+# (reference statgen.py _linear_regression_rows_nd / _logistic_regression_rows_nd
+# re-express the row regressions with ndarray primitives; the port's
+# device tier already runs them as batched torch ops)
+def _linear_regression_rows_nd(y, x, covariates, block_size=16, weights=None,
+                               pass_through=()):
+    return linear_regression_rows(y, x, covariates, block_size=block_size,
+                                  weights=weights, pass_through=pass_through)
+
+
+def _logistic_regression_rows_nd(test, y, x, covariates, pass_through=(),
+                                 max_iterations=None, tolerance=None):
+    kw = {}
+    if max_iterations is not None:
+        kw['max_iterations'] = max_iterations
+    if tolerance is not None:
+        kw['tolerance'] = tolerance
+    return logistic_regression_rows(test, y, x, covariates,
+                                    pass_through=pass_through, **kw)

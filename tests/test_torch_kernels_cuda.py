@@ -27,7 +27,11 @@ run on the CPU. Neither have the BlockMatrix tier's device ops: the exact
 GRM's int8 products (`torch._int_mm`, at shapes it refuses unpadded) are
 held to the CPU's int32 products bit for bit and its strips to the f64
 product on the card within 1e-12; the ld_prune band to the CPU's bit for
-bit, on data whose r² keep 1e-9 away from the threshold.
+bit, on data whose r² keep 1e-9 away from the threshold. K5 (variant_qc)
+is bit-equal to its plain version: integer counts, and f64 sums, min and
+max of DP and GQ below 2^16 (every partial sum an exact integer), at
+ragged shapes, with A = 2, 3 and 9 and alleles at and above A, DP and GQ
+apart, and a histogram above 48 KB of shared memory.
 """
 
 import numpy as np
@@ -469,3 +473,106 @@ def test_ld_band_on_the_card_matches_cpu(dev):
     np.testing.assert_array_equal(mean_c, mean_h)
     np.testing.assert_array_equal(ok_c, ok_h)
     np.testing.assert_allclose(z_c.cpu().numpy(), z_h.numpy(), rtol=1e-14)
+
+
+# ---- K5: variant_qc -------------------------------------------------------
+
+def _qc_inputs(R, N, A, seed):
+    """Packed calls of ploidy 0-2 with alleles up to A + 2 (some at or above
+    A; stray bits in the allele fields a haploid or ploidy-0 call does not
+    use), arbitrary bits under 6% missing, DP below 2^16 and GQ below 100
+    with 10% -1, row 0 with no defined DP and row 1 with every call
+    missing."""
+    rng = np.random.default_rng(seed)
+    ploidy = rng.choice([0, 1, 2], (R, N), p=[0.05, 0.1, 0.85])
+    j = rng.integers(0, A + 2, (R, N))
+    k = rng.integers(0, A + 2, (R, N))
+    j, k = np.minimum(j, k), np.maximum(j, k)
+    packed = (ploidy | (j << 3) | (k << 17)).astype(np.int32)
+    missing = rng.random((R, N)) < 0.06
+    if R > 1:
+        missing[1] = True
+    packed = np.where(missing, rng.integers(-2**31, 2**31, (R, N)),
+                      packed).astype(np.int32)
+    dp = rng.integers(0, 1 << 16, (R, N)).astype(np.int32)
+    dp[rng.random((R, N)) < 0.1] = -1
+    dp[0] = -1
+    gq = rng.integers(0, 100, (R, N)).astype(np.int32)
+    gq[rng.random((R, N)) < 0.1] = -1
+    return packed, missing, dp, gq
+
+
+def _qc_against_plain(dev, R, N, A, has_dp, has_gq):
+    from hail_tpu_torch.ops import _kernels, qc
+    packed, missing, dp, gq = (torch.from_numpy(a).to(dev) for a in
+                               _qc_inputs(R, N, A, R * 31 + N + A))
+    args = (packed, missing, dp if has_dp else None, gq if has_gq else None,
+            A, has_dp, has_gq)
+    before = _kernels.launches['hail_variant_qc']
+    got = qc.variant_qc_block(*args)
+    assert _kernels.launches['hail_variant_qc'] == before + 1
+    want = qc._variant_qc_ref(*args)
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        g = got[key]
+        assert g.shape == w.shape, key
+        if w.dtype == torch.float64:
+            assert g.dtype == torch.float64
+            assert torch.equal(g, w), key           # bit-equal, inf included
+        else:
+            assert g.dtype == torch.int32
+            assert torch.equal(g.to(torch.int64), w), key
+    if has_dp:
+        assert got['dp_n'][0] == 0 and got['dp_min'][0] == float('inf')
+        assert got['dp_max'][0] == float('-inf')
+    if R > 1:
+        assert got['n_called'][1] == 0 and got['AN'][1] == 0
+
+
+@pytest.mark.parametrize('R,N', [(1, 1), (3, 7), (37, 1003), (2048, 10000),
+                                 (300, 10001)])
+@pytest.mark.parametrize('A', [2, 3, 9])
+def test_variant_qc_matches_plain(dev, R, N, A):
+    _qc_against_plain(dev, R, N, A, True, True)
+
+
+@pytest.mark.parametrize('has_dp,has_gq', [(True, False), (False, True),
+                                           (False, False)])
+@pytest.mark.parametrize('R,N', [(37, 1003), (300, 10001)])
+def test_variant_qc_fields_apart(dev, R, N, has_dp, has_gq):
+    _qc_against_plain(dev, R, N, 3, has_dp, has_gq)
+
+
+def test_variant_qc_wide_histogram_and_empty_shapes(dev):
+    """An A whose histogram takes more than 48 KB of shared memory, a block
+    with no columns and one with no rows (no launch)."""
+    from hail_tpu_torch.ops import _kernels, qc
+    _qc_against_plain(dev, 5, 300, 7000, True, True)
+    e = torch.zeros((4, 0), dtype=torch.int32, device=dev)
+    out = qc.variant_qc_block(e, e.bool(), e, e, 2, True, True)
+    assert out['n_called'].tolist() == [0] * 4
+    assert out['dp_min'].tolist() == [float('inf')] * 4
+    before = _kernels.launches['hail_variant_qc']
+    z = torch.zeros((0, 5), dtype=torch.int32, device=dev)
+    out = qc.variant_qc_block(z, z.bool(), None, None, 2, False, False)
+    assert out['AC'].shape == (0, 2)
+    assert _kernels.launches['hail_variant_qc'] == before
+
+
+def test_variant_qc_rejects_bad_input(dev):
+    from hail_tpu_torch.ops import qc
+    p = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+    m = torch.zeros((3, 5), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        qc.variant_qc_block(p.long(), m, None, None, 2, False, False)
+    with pytest.raises(TypeError):
+        qc.variant_qc_block(p, m.to(torch.uint8), None, None, 2, False, False)
+    with pytest.raises(ValueError, match='shape'):
+        qc.variant_qc_block(p, m[:2], None, None, 2, False, False)
+    with pytest.raises(ValueError, match='shape'):
+        qc.variant_qc_block(p, m, p[:, :4].contiguous(), None, 2, True, False)
+    with pytest.raises(ValueError, match='contiguous'):
+        qc.variant_qc_block(p.t(), m.t(), None, None, 2, False, False)
+    with pytest.raises(ValueError, match='CUDA'):
+        qc.variant_qc_block(p, m.cpu(), None, None, 2, False, False)

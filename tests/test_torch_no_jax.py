@@ -1,6 +1,8 @@
 """hail_tpu_torch imports and runs with jax blocked, and loads nothing of
-hail_tpu: its methods, and every module of the file I/O, PCA and
-relatedness (imported; the C++ helpers of `native` are not built here).
+hail_tpu: its methods (QC, `summarize_variants` and the device tier of
+`aggregate_entries` among them), and every module of the file I/O, PCA
+and relatedness (imported; the C++ helpers of `native` are not built
+here).
 In a subprocess: this test process has jax loaded already
 (tests/conftest.py imports it)."""
 
@@ -50,6 +52,16 @@ with tempfile.TemporaryDirectory() as d:
     assert hl.read_matrix_table(d + '/m.mt').count() == (30, 40)
     rel.write(d + '/r.ht')
     assert hl.read_table(d + '/r.ht').count() == rel.count()
+mt = hl.variant_qc(hl.sample_qc(mt))
+assert mt.rows().collect()[0].variant_qc.AN > 0
+assert mt.cols().collect()[0].sample_qc.n_called > 0
+assert hl.summarize_variants(mt, show=False).n_variants == 30
+from hail_tpu_torch.ops import entry_agg as ea
+ran = []
+real = ea.run_device_entry_agg
+ea.run_device_entry_agg = lambda *a: ran.append(1) or real(*a)
+s = mt.aggregate_entries(hl.agg.stats(mt.GT.n_alt_alleles()))
+assert s.n == 40 * 30 and ran == [1, 1]
 hl.stop()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'
