@@ -31,7 +31,9 @@ run, each held to a numpy f64 oracle in this file; then `Table.order_by`
 and `MatrixTable.entries()` over its 4 partitions, and a VCF round trip
 (`hl.export_vcf`, `hl.import_vcf` GT-only) of the IBD MatrixTable's first
 2,048 variants. QC: on 10,000 samples x 8,192 variants in 4 partitions
-(GT, DP, GQ; 5% triallelic, an eighth on X) K5 against its plain version,
+(GT, DP, GQ; 5% triallelic, an eighth on X) K5 against its plain version
+(at one partition's shape and at 256 x 100,000, each beside a read-only
+stream of the same bytes),
 `hl.sample_qc`, `hl.variant_qc` (K5 once per partition), `hl.impute_sex`
 and an `aggregate_entries` on the device tier and on the host evaluator,
 each held to numpy; `hl.split_multi_hts` of 1,024 variants with AD and
@@ -95,6 +97,9 @@ VCF_VARIANTS = 2_048
 QC_SAMPLES, QC_VARIANTS, QC_PARTS = 10_000, 8_192, 4
 QC_GT_MISSING, QC_FIELD_MISSING, QC_TRIALLELIC = 0.02, 0.03, 0.05
 HTS_VARIANTS, HTS_TRIALLELIC = 1_024, 0.25
+# K5's second shape: few, wide rows, as one partition of a biobank call set
+# of 10^5 samples
+K5_WIDE = (256, 100_000)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
@@ -1977,14 +1982,83 @@ def split_hts_oracle(mb, part):
     _eq(got_gq[gt_m], part['gq'][rr][gt_m], 'split_multi_hts GQ (old)')
 
 
+def k5_wide_arrays(rng, R, C):
+    """K5's inputs at R x C with the QC MatrixTable's frequencies: packed
+    diploid calls of alleles from Beta(0.5, 4) (the third, on
+    QC_TRIALLELIC of the rows, from Beta(0.5, 8)), QC_GT_MISSING of the
+    calls missing, DP in [0, 60) and GQ in [0, 99) with QC_FIELD_MISSING
+    of each -1."""
+    af1 = np.clip(rng.beta(0.5, 4.0, R), 0.005, 0.5)[:, None]
+    af2 = np.where(rng.random(R) < QC_TRIALLELIC,
+                   np.clip(rng.beta(0.5, 8.0, R), 0.005, 0.2), 0.0)[:, None]
+    al = []
+    for _ in range(2):
+        u = rng.random((R, C), dtype=np.float32)
+        al.append(np.where(u < af1, 1, np.where(u < af1 + af2, 2, 0))
+                  .astype(np.int32))
+    packed = 2 | (np.minimum(*al) << 3) | (np.maximum(*al) << 17)
+    missing = rng.random((R, C), dtype=np.float32) < QC_GT_MISSING
+    dp = np.where(rng.random((R, C), dtype=np.float32) < QC_FIELD_MISSING,
+                  -1, rng.integers(0, 60, (R, C), dtype=np.int32))
+    gq = np.where(rng.random((R, C), dtype=np.float32) < QC_FIELD_MISSING,
+                  -1, rng.integers(0, 99, (R, C), dtype=np.int32))
+    return packed, missing, dp.astype(np.int32), gq.astype(np.int32)
+
+
+def k5_at(qc, args):
+    """K5 at the shape of `args` (variant_qc_block's, DP and GQ given):
+    bit-equal to its plain version; its time beside the plain version's and
+    beside a read-only stream of the same four inputs (torch f32 sums over
+    their bytes: another function, a yardstick of the card's read rate, not
+    a library time; a mask of R * C bytes a multiple of 4); its bound.
+    Returns (the shape's figures, the largest error on finite values)."""
+    got = qc.variant_qc_block(*args)
+    want = qc._variant_qc_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for key, w in want.items():
+        g = got[key].to(w.dtype)
+        if not torch.equal(g, w):
+            raise AssertionError(f'K5 variant_qc: {key} differs from plain')
+        fin = torch.isfinite(w) if w.is_floating_point() else None
+        d = (g - w) if fin is None else (g - w)[fin]
+        err = max(err, float(d.abs().max()) if d.numel() else 0.0)
+    ms, plain_ms = compare_times(lambda: qc.variant_qc_block(*args),
+                                 lambda: qc._variant_qc_ref(*args))
+    # the four inputs' bytes read as f32 (torch's integer and bool sums
+    # widen to int64 and read far below the card's rate)
+    words = [t.reshape(-1).view(torch.uint8).view(torch.float32)
+             for t in args[:4]]
+    stream_ms = timed_ms(lambda: [w.sum() for w in words])
+    R, C = args[0].shape
+    # bytes: packed (4), missing (1), DP and GQ (4 + 4) per entry read once;
+    # per row 8 int32 counts, 8 f64 statistics and 2 x 3 int32 allele counts
+    # written once; its work per entry (integer compares and adds, and six
+    # f64 adds and products for DP and GQ: 0.004 ms at 2,048 x 10,000 even
+    # at half the 67 TFLOP/s) is far below the bytes, counted as none
+    n_bytes = 13 * R * C + R * (8 * 4 + 8 * 8 + 2 * 3 * 4)
+    bnd = bound(n_bytes)
+    shape = dict(shape=f'{R} x {C}', ms=ms, plain_ms=plain_ms,
+                 stream_ms=stream_ms, **bnd,
+                 share_of_bound=bnd['bound_ms'] / ms)
+    log(f'K5 variant_qc {R} x {C}, A = 3, DP and GQ: bit-equal to plain; '
+        f'kernel {ms:.4f} ms ({n_bytes / ms / 1e9:.3f} TB/s, '
+        f'{shape["share_of_bound"]:.3f} of its {bnd["bound_ms"]:.4f} ms '
+        f'bound), plain {plain_ms:.4f} ms, a read-only stream of the same '
+        f'inputs {stream_ms:.4f} ms')
+    return shape, err
+
+
 def phase_qc(hl, dev, rng):
     """QC on the QC MatrixTable (QC_SAMPLES x QC_VARIANTS in QC_PARTS
     partitions): K5 against its plain version at one partition's shape,
     then sample_qc, variant_qc (K5 once per partition), impute_sex and an
     aggregate_entries on the device tier and on the host evaluator, each
     timed and held to numpy; split_multi_hts on an HTS MatrixTable of
-    HTS_VARIANTS rows. Returns (the phase's figures, the K5 record, its
-    launches on the variant_qc path, the entry_agg device-op record)."""
+    HTS_VARIANTS rows. K5 is timed at K5_WIDE too, on data of its own
+    generator, so `rng` draws what it drew before that shape. Returns
+    (the phase's figures, the K5 record, its launches on the variant_qc
+    path, the entry_agg device-op record)."""
     import os
     from hail_tpu_torch.ops import _kernels, entry_agg as ea, qc
     from hail_tpu_torch.stats import hwe
@@ -1994,40 +2068,27 @@ def phase_qc(hl, dev, rng):
     log(f'QC MatrixTable {QC_VARIANTS} x {QC_SAMPLES} in {QC_PARTS} partitions '
         f'built in {time.perf_counter() - t0:.2f} s')
 
-    # K5 at one partition: (2,048, 10,000), A = 3, DP and GQ
+    # K5 at one partition (2,048 x 10,000) and at few, wide rows (256 x
+    # 100,000), A = 3, DP and GQ
     p0 = parts[0]
     packed = (2 | (p0['j'].astype(np.int32) << 3)
               | (p0['k'].astype(np.int32) << 17))
-    args = (torch.from_numpy(packed).to(dev),
-            torch.from_numpy(p0['gt_m']).to(dev),
-            torch.from_numpy(np.where(p0['dp_m'], -1, p0['dp'])).to(dev),
-            torch.from_numpy(np.where(p0['gq_m'], -1, p0['gq'])).to(dev),
-            3, True, True)
-    got = qc.variant_qc_block(*args)
-    want = qc._variant_qc_ref(*args)
-    torch.cuda.synchronize()
-    err5 = 0.0
-    for key, w in want.items():
-        g = got[key].to(w.dtype)
-        if not torch.equal(g, w):
-            raise AssertionError(f'K5 variant_qc: {key} differs from plain')
-        fin = torch.isfinite(w) if w.is_floating_point() else None
-        d = (g - w) if fin is None else (g - w)[fin]
-        err5 = max(err5, float(d.abs().max()) if d.numel() else 0.0)
-    ms, plain_ms = compare_times(lambda: qc.variant_qc_block(*args),
-                                 lambda: qc._variant_qc_ref(*args))
-    R, C = packed.shape
-    # bytes: packed (4), missing (1), DP and GQ (4 + 4) per entry read once;
-    # per row 8 int32 counts, 8 f64 statistics and 2 x 3 int32 allele counts
-    # written once; its compares and adds per entry are integer work far
-    # below any rate, counted as no operations
-    k5_bytes = 13 * R * C + R * (8 * 4 + 8 * 8 + 2 * 3 * 4)
-    log(f'K5 variant_qc {R} x {C}, A = 3, DP and GQ: bit-equal to plain; '
-        f'kernel {ms:.4f} ms ({k5_bytes / ms / 1e9:.3f} TB/s), plain '
-        f'{plain_ms:.4f} ms')
+    shapes, err5 = [], 0.0
+    for arrays in ((packed, p0['gt_m'], np.where(p0['dp_m'], -1, p0['dp']),
+                    np.where(p0['gq_m'], -1, p0['gq'])),
+                   k5_wide_arrays(np.random.default_rng(SEED + 8),
+                                  *K5_WIDE)):
+        args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays) + (3, True, True)
+        shape, err = k5_at(qc, args)
+        shapes.append(shape)
+        err5 = max(err5, err)
+        del args
+    main = shapes[0]
     rec = record('variant_qc', 'hail_tpu_torch/csrc/variant_qc.cu',
-                 'hail_tpu/ops/qc.py:22', err5, ms, plain_ms, bound(k5_bytes))
-    del args, got, want
+                 'hail_tpu/ops/qc.py:22', err5, main['ms'], main['plain_ms'],
+                 {k: main[k] for k in ('bound_ms', 'bound_by', 'bound_unit')},
+                 stream_ms=main['stream_ms'], shapes=shapes)
 
     t0 = time.perf_counter()
     sq = hl.sample_qc(mt)

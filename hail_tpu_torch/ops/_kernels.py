@@ -41,8 +41,8 @@ _SIGNATURES = {
     'hail_unpack_gt_2bit': [_P, _LL, _I, _I, _P, _P, _P],
     'hail_ibs_counts': [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
     'hail_linreg_i8_sums': [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    'hail_variant_qc': [_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P,
-                        _P],
+    'hail_variant_qc': [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P],
 }
 
 launches: Dict[str, int] = {name: 0 for name in _SIGNATURES}

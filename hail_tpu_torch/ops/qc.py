@@ -13,10 +13,16 @@ other: a refused build or launch raises.
 The packed call layout is genetics/call.py's: ploidy `& 3`, allele j
 `>> 3 & 0x3FFF`, allele k `>> 17 & 0x7FFF`. Alleles at or above A =
 `max_alleles` are counted in no AC column, as in the reference.
+
+The kernel's results are bit-equal to the plain version's: the counts
+always, and the f64 sums of DP and GQ and of their squares while every
+partial sum of squares is an exact integer, that is while C * max(DP)^2
+< 2^53 (and the same for GQ). Past that both round, in different orders.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -33,6 +39,43 @@ _STATS = ('dp_sum', 'dp_sumsq', 'dp_min', 'dp_max',
           'gq_sum', 'gq_sumsq', 'gq_min', 'gq_max')
 # K5 holds each count of a row in an int32: C entries, AN up to 3 C
 _MAX_COLS = (1 << 31) // 3 - 1
+# K5's launch: each warp of the grid takes one segment of one row; the
+# card holds _RESIDENT_WARPS_PER_SM of them a SM at once: two blocks of 256
+# threads, as csrc/variant_qc.cu's `kThreads` and `__launch_bounds__(kThreads,
+# 2)` set (its 95-123 registers leave no room for a third; the C entry point
+# counts the blocks and refuses a grid past the launch limit). Segments are
+# at least _MIN_SEG entries (fewer only in a shorter row).
+_RESIDENT_WARPS_PER_SM = 16
+_MIN_SEG = 2_048
+_MAX_ROUNDS = 4
+
+
+def _launch_plan(R: int, C: int, n_sms: int):
+    """(seg_len, n_segs) of K5's launch over an (R, C) block on a card of
+    `n_sms` SMs. Warp w of the grid (warps at or past R * n_segs idle)
+    takes row w // n_segs, columns [s * seg_len, min(C, (s + 1) * seg_len))
+    with s = w % n_segs.
+
+    The card holds _RESIDENT_WARPS_PER_SM warps a SM at once, so R * n_segs
+    warps of equal work run in rounds, and the last round's idle slots are
+    time lost. n_segs (1 up to what _MIN_SEG and _MAX_ROUNDS allow) is
+    the fewest that fill the rounds within 1% of the best. seg_len is a
+    multiple of 16, so the segments of a row that starts aligned start
+    aligned too; a row of no columns still has its one segment, which
+    writes nothing."""
+    cap = _RESIDENT_WARPS_PER_SM * n_sms
+    rows = max(R, 1)
+    most = max(1, min(C // _MIN_SEG, -(-_MAX_ROUNDS * cap // rows)))
+    fill = [rows * n / (-(-rows * n // cap) * cap) for n in range(1, most + 1)]
+    n_segs = next(n for n, f in enumerate(fill, 1) if f >= 0.99 * max(fill))
+    per_seg = -(-C // n_segs)
+    seg_len = max(16, -(-per_seg // 16) * 16)
+    return seg_len, max(1, -(-C // seg_len))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _field_stats(prefix, v: torch.Tensor, out: dict) -> None:
@@ -113,17 +156,25 @@ def variant_qc_block(packed: torch.Tensor, missing: torch.Tensor,
     if max_alleles < 0:
         raise ValueError(f'variant_qc_block: max_alleles {max_alleles} < 0')
     dev = packed.device
-    counts = torch.zeros((len(_COUNTS), R), dtype=torch.int32, device=dev)
-    ac = torch.zeros((R, max_alleles), dtype=torch.int32, device=dev)
-    hom = torch.zeros((R, max_alleles), dtype=torch.int32, device=dev)
-    stats = torch.zeros((len(_STATS), R), dtype=torch.float64, device=dev)
+    # K5 adds each segment of a row into its outputs: the counts start at 0
+    # (one allocation), the statistics at 0, min at +inf and max at -inf
+    ints = torch.zeros(len(_COUNTS) * R + 2 * R * max_alleles,
+                       dtype=torch.int32, device=dev)
+    counts = ints[:len(_COUNTS) * R].view(len(_COUNTS), R)
+    ac, hom = ints[len(_COUNTS) * R:].view(2, R, max_alleles)
+    stats = torch.empty((len(_STATS), R), dtype=torch.float64, device=dev)
+    per_field = stats.view(2, 4, R)      # (DP, GQ) x (sum, sumsq, min, max)
+    per_field[:, :2].zero_()
+    per_field[:, 2].fill_(float('inf'))
+    per_field[:, 3].fill_(float('-inf'))
     if R:
+        seg_len, n_segs = _launch_plan(R, C, _n_sms(dev.index or 0))
         _kernels.launch('hail_variant_qc', packed.data_ptr(),
                         missing.data_ptr(),
                         dp.data_ptr() if has_dp else None,
                         gq.data_ptr() if has_gq else None,
                         R, C, max_alleles, int(has_dp) | 2 * int(has_gq),
-                        counts.data_ptr(), ac.data_ptr(),
+                        seg_len, n_segs, counts.data_ptr(), ac.data_ptr(),
                         hom.data_ptr(), stats.data_ptr())
     out = {name: counts[i] for i, name in enumerate(_COUNTS[:6])}
     out['AC'] = ac

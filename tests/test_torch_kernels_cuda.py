@@ -29,9 +29,13 @@ held to the CPU's int32 products bit for bit and its strips to the f64
 product on the card within 1e-12; the ld_prune band to the CPU's bit for
 bit, on data whose r² keep 1e-9 away from the threshold. K5 (variant_qc)
 is bit-equal to its plain version: integer counts, and f64 sums, min and
-max of DP and GQ below 2^16 (every partial sum an exact integer), at
-ragged shapes, with A = 2, 3 and 9 and alleles at and above A, DP and GQ
-apart, and a histogram above 48 KB of shared memory.
+max of DP and GQ (exact while C * max² < 2^53, so bit-equal in any order),
+at ragged shapes and at few, wide rows whose segments meet at ragged edges
+(4 x 200,003, 130 x 40,000), with A = 2, 3, 9 and 7,000 and alleles at and
+above A, DP and GQ apart, inputs off 16-byte boundaries in the same phase
+(the vector body behind a head) and in different phases (the scalar
+loop), and DP just below 2^19 at C = 10,001, near the top of the exact
+range. One call is one launch.
 """
 
 import numpy as np
@@ -502,10 +506,21 @@ def _qc_inputs(R, N, A, seed):
     return packed, missing, dp, gq
 
 
-def _qc_against_plain(dev, R, N, A, has_dp, has_gq):
+def _on_card(a, dev, offset=0):
+    """`a` on the card as a contiguous slice that starts `offset` elements
+    into a buffer whose own base is aligned."""
+    flat = np.zeros(a.size + offset, a.dtype)
+    flat[offset:] = a.ravel()
+    return torch.from_numpy(flat).to(dev)[offset:].view(a.shape)
+
+
+def _qc_against_plain(dev, R, N, A, has_dp, has_gq, offsets=(0, 0, 0, 0),
+                      inputs=None):
     from hail_tpu_torch.ops import _kernels, qc
-    packed, missing, dp, gq = (torch.from_numpy(a).to(dev) for a in
-                               _qc_inputs(R, N, A, R * 31 + N + A))
+    if inputs is None:
+        inputs = _qc_inputs(R, N, A, R * 31 + N + A)
+    packed, missing, dp, gq = (_on_card(a, dev, o)
+                               for a, o in zip(inputs, offsets))
     args = (packed, missing, dp if has_dp else None, gq if has_gq else None,
             A, has_dp, has_gq)
     before = _kernels.launches['hail_variant_qc']
@@ -528,13 +543,59 @@ def _qc_against_plain(dev, R, N, A, has_dp, has_gq):
         assert got['dp_max'][0] == float('-inf')
     if R > 1:
         assert got['n_called'][1] == 0 and got['AN'][1] == 0
+    return got
 
 
+# the few, wide rows are cut into 97 segments of 2,064 entries and 16 of
+# 2,512 that meet off 16-byte boundaries (C odd) and at rows' ends
+# (ops/qc._launch_plan on 132 SMs)
 @pytest.mark.parametrize('R,N', [(1, 1), (3, 7), (37, 1003), (2048, 10000),
-                                 (300, 10001)])
+                                 (300, 10001), (4, 200003), (130, 40000)])
 @pytest.mark.parametrize('A', [2, 3, 9])
 def test_variant_qc_matches_plain(dev, R, N, A):
     _qc_against_plain(dev, R, N, A, True, True)
+
+
+def _phase(t):
+    """An int32 input's data_ptr / 4, or the mask's data_ptr, modulo 4: the
+    kernel takes its vector body only where all inputs' phases agree."""
+    p = t.data_ptr()
+    return (p >> 2 if t.element_size() == 4 else p) % 4
+
+
+# (packed, missing, DP, GQ) offsets in elements: all in one phase off 16
+# bytes (a head, then the vector body), and phases that differ (the scalar
+# loop for the whole launch), among them a slice [1:] of an odd-C buffer
+@pytest.mark.parametrize('offsets,same', [
+    ((1, 1, 1, 1), True), ((3, 3, 7, 11), True), ((2, 6, 2, 2), True),
+    ((10001, 3, 0, 0), False), ((0, 0, 2, 0), False), ((1, 2, 3, 0), False),
+    ((0, 0, 0, 1), False)])
+@pytest.mark.parametrize('A', [2, 9])
+def test_variant_qc_misaligned_inputs(dev, offsets, same, A):
+    R, N = 37, 10001
+    ts = [_on_card(np.zeros((R, N), d), dev, o) for d, o in
+          zip((np.int32, np.bool_, np.int32, np.int32), offsets)]
+    assert (len({_phase(t) for t in ts}) == 1) == same
+    assert any(t.data_ptr() % 16 for t in ts)
+    _qc_against_plain(dev, R, N, A, True, True, offsets)
+
+
+def test_variant_qc_dp_near_the_top_of_the_exact_range(dev):
+    """DP just below 2^19 at C = 10,001: C * max² = 2.7e15 < 2^53, so every
+    partial sum of squares is an exact integer; the sums equal int64 ones."""
+    R, N = 64, 10001
+    packed, missing, dp, gq = _qc_inputs(R, N, 3, 19)
+    rng = np.random.default_rng(19)
+    dp = np.where(dp >= 0, rng.integers((1 << 19) - 4096, 1 << 19, (R, N)),
+                  -1).astype(np.int32)
+    assert N * int(dp.max()) ** 2 < 2 ** 53
+    got = _qc_against_plain(dev, R, N, 3, True, True,
+                            inputs=(packed, missing, dp, gq))
+    d = np.where(dp >= 0, dp, 0).astype(np.int64)
+    np.testing.assert_array_equal(got['dp_sum'].cpu().numpy(),
+                                  d.sum(axis=1).astype(np.float64))
+    np.testing.assert_array_equal(got['dp_sumsq'].cpu().numpy(),
+                                  (d * d).sum(axis=1).astype(np.float64))
 
 
 @pytest.mark.parametrize('has_dp,has_gq', [(True, False), (False, True),
@@ -544,9 +605,17 @@ def test_variant_qc_fields_apart(dev, R, N, has_dp, has_gq):
     _qc_against_plain(dev, R, N, 3, has_dp, has_gq)
 
 
+def test_variant_qc_many_alleles_across_segments(dev):
+    """A = 7,000 (alleles 3..6,999 through the warp-aggregated atomics) in
+    rows of 8,195 entries cut into 4 segments, DP and GQ apart too."""
+    _qc_against_plain(dev, 4, 8195, 7000, True, True)
+    _qc_against_plain(dev, 4, 8195, 7000, False, True, (1, 1, 0, 1))
+
+
 def test_variant_qc_wide_histogram_and_empty_shapes(dev):
-    """An A whose histogram takes more than 48 KB of shared memory, a block
-    with no columns and one with no rows (no launch)."""
+    """An A of 7,000 (whose histogram took more than 48 KB of shared memory
+    in the first design), a block with no columns and one with no rows (no
+    launch)."""
     from hail_tpu_torch.ops import _kernels, qc
     _qc_against_plain(dev, 5, 300, 7000, True, True)
     e = torch.zeros((4, 0), dtype=torch.int32, device=dev)
