@@ -37,7 +37,16 @@ stream of the same bytes),
 `hl.sample_qc`, `hl.variant_qc` (K5 once per partition), `hl.impute_sex`
 and an `aggregate_entries` on the device tier and on the host evaluator,
 each held to numpy; `hl.split_multi_hts` of 1,024 variants with AD and
-PL held to numpy.
+PL held to numpy. The rest of statgen: the linear mixed model on 4,096
+samples x 8,192 variants (`hl.genetic_relatedness_matrix`,
+`hl.linear_mixed_model` with `k=` and with `z_t=` over 1,024 variants,
+`fit`, `hl.linear_mixed_regression_rows`; 64 variants held to the scalar
+loop, a planted variant found), `hl._linear_skat` and `hl._logistic_skat`
+on 10,000 x 8,192 in 512 genes (q_stat held to numpy, a planted gene
+found), `hl.experimental.ld_score` on 10,000 x 8,192 with a 1 Mb radius
+(256 rows held to numpy) and `hl.simulate_random_mating` of 1,000 x 8,192
+over two rounds (every child call checked against its parents'), with
+the two device ops of that slice, ops/lmm and ops/ldscore, timed.
 It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
@@ -100,6 +109,21 @@ HTS_VARIANTS, HTS_TRIALLELIC = 1_024, 0.25
 # K5's second shape: few, wide rows, as one partition of a biobank call set
 # of 10^5 samples
 K5_WIDE = (256, 100_000)
+# the rest of statgen (phase_statgen_rest). The linear mixed model on 4,096
+# samples x 8,192 variants in 4 partitions, not 10,000 samples: its eigh and
+# its rotation are host n³ work, as in the reference, about 14.5x more of it
+# at 10,000; its low-rank route over the first 1,024 variants (at most the
+# samples: the full SVD forms an m x m Vᵀ); 64 variants held to the scalar
+# loop, one planted. SKAT on 10,000 x 8,192 in 512 genes of 16, one planted;
+# ld_score on 10,000 x 8,192, a variant every 5 kb, radius 1 Mb (windows of
+# hundreds of variants); simulate_random_mating of 1,000 x 8,192, two rounds
+LMM_SAMPLES, LMM_VARIANTS, LMM_PARTS, LMM_LOW_RANK = 4_096, 8_192, 4, 1_024
+LMM_CAUSAL, LMM_CHECK_ROWS = 5_000, 64
+SKAT_SAMPLES, SKAT_VARIANTS, SKAT_PARTS, SKAT_GROUP = 10_000, 8_192, 4, 16
+SKAT_PLANTED, SKAT_CHECK_GROUPS = 100, 64
+LDS_SAMPLES, LDS_VARIANTS, LDS_PARTS = 10_000, 8_192, 4
+LDS_RADIUS, LDS_SPACING, LDS_CHECK_ROWS = 1_000_000, 5_000, 256
+MATING_SAMPLES, MATING_VARIANTS, MATING_PARTS = 1_000, 8_192, 4
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
@@ -126,35 +150,17 @@ def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno, dups=0):
     With `dups`, the last `dups` samples copy the calls and missingness of
     the first `dups`. Returns (mt, nalt blocks, missing blocks, column
     arrays)."""
-    from hail_tpu_torch import types as ht
-    from hail_tpu_torch.genetics.call import pack_diploid
-    from hail_tpu_torch.genetics.reference_genome import default_reference
-    from hail_tpu_torch.ir.columns import (Batch, LocusColumn, ObjectColumn,
-                                           PrimitiveColumn)
-    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
-    rg = default_reference()
-    mbs, nalts, misses = [], [], []
+    parts, nalts, misses = [], [], []
     for p in range(n_parts):
         nalt = rng.integers(0, 3, (block_r, n_samples)).astype(np.int32)
         miss = rng.random((block_r, n_samples)) < MISSING
         if dups:
             nalt[:, -dups:] = nalt[:, :dups]
             miss[:, -dups:] = miss[:, :dups]
-        gt = pack_diploid((nalt == 2).astype(np.int32),
-                          (nalt >= 1).astype(np.int32))
         pos = np.arange(p * block_r, (p + 1) * block_r, dtype=np.int32) + 10_000
-        alleles = np.empty(block_r, dtype=object)
-        alleles[:] = [['A', 'T']] * block_r
-        rows = Batch({
-            'locus': LocusColumn(ht.tlocus(rg), np.zeros(block_r, np.int32), pos),
-            'alleles': ObjectColumn(ht.tarray(ht.tstr), alleles),
-        }, block_r)
-        mbs.append(MatrixBatch(rows, {'GT': PrimitiveColumn(ht.tcall, gt, miss)}))
+        parts.append(dict(nalt=nalt, miss=miss, contig=0, pos=pos))
         nalts.append(nalt)
         misses.append(miss)
-    col_fields = {'s': ObjectColumn(
-        ht.tstr, np.asarray([f's{i}' for i in range(n_samples)], object))}
-    col_t = {'s': ht.tstr}
     cols_np = {}
     if with_pheno:
         for name in ['pheno'] + [f'c{i}' for i in range(K - 1)]:
@@ -168,14 +174,49 @@ def build_mt(hl, rng, n_samples, block_r, n_parts, with_pheno, dups=0):
                          < 1 / (1 + np.exp(-eta))).astype(np.float64)
         cols_np['yc'] = rng.poisson(np.exp(np.clip(eta, -3, 2))).astype(
             np.float64)
-        for name, v in cols_np.items():
-            col_fields[name] = PrimitiveColumn(ht.tfloat64, v)
-            col_t[name] = ht.tfloat64
-    row_t = ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr))
-    mt = MatrixTable(MatrixStage.from_batches(
-        Batch({}, 1), Batch(col_fields, n_samples), ['locus', 'alleles'], ['s'],
-        row_t, ht.tstruct(**col_t), ht.tstruct(GT=ht.tcall), mbs))
-    return mt, nalts, misses, cols_np
+    return calls_mt(parts, n_samples, cols_np), nalts, misses, cols_np
+
+
+def calls_mt(parts, n_samples, cols_np, row_fields=()):
+    """A MatrixTable of packed GT calls, one partition per dict of `parts`:
+    n_alt and missing (R, n_samples), contig index and positions (GRCh37),
+    and int32 or f64 arrays under the names in `row_fields`. Columns: the
+    key `s` ('s<i>') and the f64 arrays of `cols_np`."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.call import pack_diploid
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ir.columns import (Batch, LocusColumn, ObjectColumn,
+                                           PrimitiveColumn)
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    rg = default_reference()
+    row_t = {name: {'i': ht.tint32, 'f': ht.tfloat64}[parts[0][name].dtype.kind]
+             for name in row_fields}
+    mbs = []
+    for part in parts:
+        nalt, R = part['nalt'], part['nalt'].shape[0]
+        gt = pack_diploid((nalt == 2).astype(np.int32),
+                          (nalt >= 1).astype(np.int32))
+        alleles = np.empty(R, dtype=object)
+        alleles[:] = [['A', 'T']] * R
+        rows = {'locus': LocusColumn(
+                    ht.tlocus(rg), np.full(R, part['contig'], np.int32),
+                    np.asarray(part['pos'], np.int32)),
+                'alleles': ObjectColumn(ht.tarray(ht.tstr), alleles)}
+        for name in row_fields:
+            rows[name] = PrimitiveColumn(row_t[name], part[name])
+        mbs.append(MatrixBatch(Batch(rows, R), {
+            'GT': PrimitiveColumn(ht.tcall, gt, part['miss'])}))
+    col_fields = {'s': ObjectColumn(
+        ht.tstr, np.asarray([f's{i}' for i in range(n_samples)], object))}
+    col_t = {'s': ht.tstr}
+    for name, v in cols_np.items():
+        col_fields[name] = PrimitiveColumn(ht.tfloat64, v)
+        col_t[name] = ht.tfloat64
+    return MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), Batch(col_fields, n_samples), ['locus', 'alleles'],
+        ['s'], ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr),
+                          **row_t),
+        ht.tstruct(**col_t), ht.tstruct(GT=ht.tcall), mbs))
 
 
 def covariates(cols_np):
@@ -2231,6 +2272,458 @@ def phase_qc(hl, dev, rng):
     return out, rec, n_qc, op
 
 
+def mean_imputed(nalt, miss):
+    """n_alt as f64 with each missing call set to its row's mean over the
+    called samples, as the methods impute it (statgen's LMM, SKAT and
+    ld_score)."""
+    G = nalt.astype(np.float64)
+    cnt = (~miss).sum(axis=1)
+    mean = np.where(cnt > 0, np.where(miss, 0, G).sum(axis=1)
+                    / np.maximum(cnt, 1), 0.0)
+    return np.where(miss, mean[:, None], G)
+
+
+def standardized(G):
+    """Rows centred and scaled to unit variance (0 where constant)."""
+    c = G - G.mean(axis=1, keepdims=True)
+    sd = c.std(axis=1, keepdims=True)
+    return np.where(sd > 0, c / np.where(sd > 0, sd, 1), 0.0)
+
+
+def split_parts(nalt, miss, n_parts, contigs=None, pos=None, **row_fields):
+    """calls_mt's partition dicts for (m, n) calls in n_parts equal blocks;
+    by default all on contig 0 at positions 10,000 + row."""
+    m = nalt.shape[0]
+    block = m // n_parts
+    contigs = np.zeros(m, np.int32) if contigs is None else contigs
+    pos = np.arange(m, dtype=np.int32) + 10_000 if pos is None else pos
+    parts = []
+    for p in range(n_parts):
+        sl = slice(p * block, (p + 1) * block)
+        parts.append(dict(nalt=nalt[sl], miss=miss[sl], contig=int(contigs[sl][0]),
+                          pos=pos[sl], **{k: v[sl] for k, v in row_fields.items()}))
+    return parts
+
+
+def _row_arrays(table, fields):
+    b = table._stage.collect_single()
+    return {f: np.asarray(b.columns[f].values, np.float64) for f in fields}
+
+
+def lmm_loop_check(model, pa, res, what):
+    """The batched test's first LMM_CHECK_ROWS variants against the scalar
+    loop `fit_alternatives_numpy` (rank-one update against one solve per
+    variant) at rtol 1e-8. chi² is twice the difference of two
+    log-likelihoods of size |ll0|, each summed from terms of that size: its
+    roundoff floor is a few eps·|ll0|, so chi² gets an atol of
+    1e-13·|ll0| beside the rtol (a variant with chi² near 0 would
+    otherwise ask for more digits than the difference has)."""
+    loop = model.fit_alternatives_numpy(pa[:, :LMM_CHECK_ROWS])
+    ll0 = abs(model._neg_reml(-model.log_gamma)[0])
+    worst = 0.0
+    for f, atol in (('beta', 0.0), ('sigma_sq', 0.0), ('chi_sq', 1e-13 * ll0)):
+        got, want = res[f][:LMM_CHECK_ROWS], loop[f]
+        err = np.abs(got - want)
+        bad = ~(err <= 1e-8 * np.abs(want) + atol)
+        if bad.any():
+            raise AssertionError(f'LMM {what}: {f} of {int(bad.sum())} of '
+                                 f'{LMM_CHECK_ROWS} variants differs from the '
+                                 f'scalar loop (max abs err {err.max():.3g})')
+        worst = max(worst, float(np.max(err / np.maximum(np.abs(want), 1e-300))))
+    return worst
+
+
+def lmm_checks(model, res, pa, what):
+    """Finite fit in (0, 1), the loop check, the planted variant; returns
+    the figures to print."""
+    if not (model.fitted and 0 <= model.h_sq <= 1):
+        raise AssertionError(f'LMM {what}: h_sq {model.h_sq}')
+    rel = lmm_loop_check(model, pa, res, what)
+    p = res['p_value'][LMM_CAUSAL]
+    if not p < 1e-8:
+        raise AssertionError(f'LMM {what}: the planted variant has p {p}')
+    n_nan = int(np.isnan(res['p_value']).sum())
+    finite = res['p_value'][~np.isnan(res['p_value'])]
+    if not ((finite >= 0) & (finite <= 1)).all():
+        raise AssertionError(f'LMM {what}: a p-value outside [0, 1]')
+    return dict(h_sq=model.h_sq, causal_p=float(p), nan_rows=n_nan,
+                loop_max_rel_err=rel)
+
+
+def phase_lmm(hl, rng):
+    """The linear mixed model on LMM_SAMPLES x LMM_VARIANTS in LMM_PARTS
+    partitions: a phenotype half polygenic over every variant plus one
+    planted variant (LMM_CAUSAL) and a covariate. Full rank: the GRM
+    (ExactGrm on the card), `linear_mixed_model(k=...)` (host eigh), `fit`
+    (host REML), `linear_mixed_regression_rows` (host rotation, ops/lmm on
+    the device); low rank: `z_t` over the first LMM_LOW_RANK variants (host
+    SVD), its fit and regression rows. Returns (figures, ops/lmm's device
+    args)."""
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.ops import lmm
+    from hail_tpu_torch.stats import linear_mixed_model as lmm_mod
+    n, m = LMM_SAMPLES, LMM_VARIANTS
+    nalt = rng.integers(0, 3, (m, n)).astype(np.int32)
+    miss = rng.random((m, n)) < MISSING
+    G = mean_imputed(nalt, miss)
+    Zs = standardized(G)
+    g = Zs.T @ rng.normal(size=m)
+    c0 = rng.normal(size=n)
+    y = (g * math.sqrt(0.5) / g.std() + 0.3 * Zs[LMM_CAUSAL] + 0.3 * c0
+         + rng.normal(size=n) * math.sqrt(0.5))
+    del Zs, g
+    mt = calls_mt(split_parts(nalt, miss, LMM_PARTS), n, {'y': y, 'c0': c0})
+    low = calls_mt(split_parts(nalt[:LMM_LOW_RANK], miss[:LMM_LOW_RANK], 1),
+                   n, {})
+    out = {}
+
+    t0 = time.perf_counter()
+    K = hl.genetic_relatedness_matrix(mt.GT).to_numpy()
+    out['grm_s'] = time.perf_counter() - t0
+    # ExactGrm's strips sum in their own orders: K is symmetric to roundoff
+    if K.shape != (n, n) or not np.abs(K - K.T).max() <= 1e-12:
+        raise AssertionError('LMM: the GRM is not a symmetric n x n matrix')
+    with Spy(np.linalg, 'eigh') as eig:
+        t0 = time.perf_counter()
+        model, _ = hl.linear_mixed_model(mt.y, [1.0, mt.c0], k=K)
+        out['model_s'] = time.perf_counter() - t0
+    out['eigh_s'] = eig.total()
+    del K
+    t0 = time.perf_counter()
+    model.fit()
+    out['fit_s'] = time.perf_counter() - t0
+    fields = ('beta', 'sigma_sq', 'chi_sq', 'p_value')
+    with Spy(statgen, '_entry_expr_to_blocks') as ent, \
+            Spy(lmm_mod, '_device_contractions') as dev_part, \
+            Spy(lmm, 'contractions', keep=True) as op:
+        t0 = time.perf_counter()
+        res = _row_arrays(hl.linear_mixed_regression_rows(
+            mt.GT.n_alt_alleles(), model), fields)
+        out['regression_s'] = time.perf_counter() - t0
+    if op.count() != 1:
+        raise AssertionError(f'LMM: ops/lmm ran {op.count()} times')
+    op_args = op.last['contractions'][0]
+    out['entry_s'] = ent.total()
+    out['ops_lmm_s'] = dev_part.total()
+    # the rotation the call made, made again here on the same arrays
+    t0 = time.perf_counter()
+    pa = model._u.T @ G.T
+    out['rotation_s'] = time.perf_counter() - t0
+    out['rest_s'] = (out['regression_s'] - out['entry_s'] - out['rotation_s']
+                     - out['ops_lmm_s'])
+    out['full_rank'] = lmm_checks(model, res, pa, 'full rank')
+    del pa
+    log(f'LMM full rank, {n} samples x {m} variants: GRM {out["grm_s"]:.3f} s, '
+        f'linear_mixed_model {out["model_s"]:.3f} s (host eigh '
+        f'{out["eigh_s"]:.3f} s), REML fit {out["fit_s"]:.3f} s (h_sq '
+        f'{model.h_sq:.4f}), linear_mixed_regression_rows '
+        f'{out["regression_s"]:.3f} s: entry evaluation {out["entry_s"]:.3f} '
+        f's, host rotation {out["rotation_s"]:.3f} s (timed again by this '
+        f'script), ops/lmm with its copies {out["ops_lmm_s"]:.3f} s, the rest '
+        f'{out["rest_s"]:.3f} s; {LMM_CHECK_ROWS} variants equal the scalar '
+        f'loop (max rel err {out["full_rank"]["loop_max_rel_err"]:.3g}), the '
+        f'planted variant p {out["full_rank"]["causal_p"]:.3g}, '
+        f'{out["full_rank"]["nan_rows"]} NaN rows')
+
+    with Spy(np.linalg, 'svd') as svd:
+        t0 = time.perf_counter()
+        model, Z = hl.linear_mixed_model(mt.y, [1.0, mt.c0],
+                                         z_t=low.GT.n_alt_alleles())
+        out['low_rank_model_s'] = time.perf_counter() - t0
+    out['low_rank_svd_s'] = svd.total()
+    if Z.shape != (n, LMM_LOW_RANK):
+        raise AssertionError(f'LMM low rank: Z is {Z.shape}')
+    t0 = time.perf_counter()
+    model.fit()
+    out['low_rank_fit_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = _row_arrays(hl.linear_mixed_regression_rows(
+        mt.GT.n_alt_alleles(), model), fields)
+    out['low_rank_regression_s'] = time.perf_counter() - t0
+    out['low_rank'] = lmm_checks(model, res,
+                                 model._u.T @ G[:LMM_CHECK_ROWS].T, 'low rank')
+    log(f'LMM low rank, z_t over {LMM_LOW_RANK} variants: linear_mixed_model '
+        f'{out["low_rank_model_s"]:.3f} s (host SVD {out["low_rank_svd_s"]:.3f} '
+        f's), fit {out["low_rank_fit_s"]:.3f} s (h_sq {model.h_sq:.4f}), '
+        f'regression rows {out["low_rank_regression_s"]:.3f} s; '
+        f'{LMM_CHECK_ROWS} variants equal the scalar loop (max rel err '
+        f'{out["low_rank"]["loop_max_rel_err"]:.3g}), the planted variant p '
+        f'{out["low_rank"]["causal_p"]:.3g}, {out["low_rank"]["nan_rows"]} '
+        f'NaN rows')
+    return out, op_args
+
+
+def logistic_null_mu(X, y, max_iter=25, tol=1e-6):
+    """The logistic null fit's μ by Newton's method as Hail defines it: the
+    intercept starts at logit(ȳ), and the fit stops at the iterate whose
+    step is below `tol`, before taking that step."""
+    b = np.zeros(X.shape[1])
+    b[0] = math.log(y.mean() / (1 - y.mean()))
+    for _ in range(max_iter):
+        mu = 1 / (1 + np.exp(-(X @ b)))
+        delta = np.linalg.solve(X.T @ (X * (mu * (1 - mu))[:, None]),
+                                X.T @ (y - mu))
+        if np.max(np.abs(delta)) < tol:
+            return mu
+        b = b + delta
+    raise AssertionError('SKAT: the numpy null fit did not converge')
+
+
+def skat_rows_check(rows, G, w, resid, scale, what):
+    """Every group: size SKAT_GROUP, p in [0, 1], fault 0; the first
+    SKAT_CHECK_GROUPS q_stat equal ||Gw·resid||² / scale at rtol 1e-10; the
+    planted group p < 1e-6. Returns (max rel err of q, planted p)."""
+    by_group = {r.group: r for r in rows}
+    if sorted(by_group) != list(range(SKAT_VARIANTS // SKAT_GROUP)):
+        raise AssertionError(f'SKAT {what}: groups {len(by_group)}')
+    for r in rows:
+        if r.size != SKAT_GROUP or r.fault != 0 or not 0 <= r.p_value <= 1:
+            raise AssertionError(f'SKAT {what}: group {r.group}: {r}')
+    worst = 0.0
+    for gi in range(SKAT_CHECK_GROUPS):
+        idx = slice(gi * SKAT_GROUP, (gi + 1) * SKAT_GROUP)
+        v = (G[idx] * np.sqrt(w[idx])[:, None]) @ resid
+        q = float(v @ v) / scale
+        err = abs(by_group[gi].q_stat - q) / abs(q)
+        if not err <= 1e-10:
+            raise AssertionError(f'SKAT {what}: group {gi} q_stat '
+                                 f'{by_group[gi].q_stat} vs numpy {q}')
+        worst = max(worst, err)
+    p = by_group[SKAT_PLANTED].p_value
+    if not p < 1e-6:
+        raise AssertionError(f'SKAT {what}: the planted group has p {p}')
+    return worst, p
+
+
+def phase_skat(hl, rng):
+    """SKAT over SKAT_SAMPLES x SKAT_VARIANTS in SKAT_PARTS partitions, in
+    genes of SKAT_GROUP consecutive variants with allele frequencies from
+    Beta(0.5, 15) (mostly rare), weights Beta(1, 25) of each variant's
+    MAF (SKAT's default), a covariate, and the burden of gene SKAT_PLANTED
+    in both phenotypes: `hl._linear_skat` and `hl._logistic_skat`, held to
+    numpy."""
+    import scipy.stats
+    n, m = SKAT_SAMPLES, SKAT_VARIANTS
+    af = rng.beta(0.5, 15, m)
+    nalt = rng.binomial(2, af[:, None], (m, n)).astype(np.int32)
+    miss = rng.random((m, n)) < MISSING
+    G = mean_imputed(nalt, miss)
+    maf = G.mean(axis=1) / 2
+    w = scipy.stats.beta.pdf(np.minimum(maf, 1 - maf), 1, 25)
+    gene = (np.arange(m) // SKAT_GROUP).astype(np.int32)
+    planted = slice(SKAT_PLANTED * SKAT_GROUP, (SKAT_PLANTED + 1) * SKAT_GROUP)
+    burden = nalt[planted].sum(axis=0)
+    c0 = rng.normal(size=n)
+    y = 0.4 * burden + 0.3 * c0 + rng.normal(size=n)
+    yb = (rng.random(n) < 1 / (1 + np.exp(-(-1.0 + 0.8 * burden + 0.3 * c0)))
+          ).astype(np.float64)
+    mt = calls_mt(split_parts(nalt, miss, SKAT_PARTS, w=w, gene=gene), n,
+                  {'y': y, 'yb': yb, 'c0': c0}, row_fields=('w', 'gene'))
+    X = np.stack([np.ones(n), c0], axis=1)
+    out = {}
+    for what, fn, pheno in (('linear', hl._linear_skat, mt.y),
+                            ('logistic', hl._logistic_skat, mt.yb)):
+        t0 = time.perf_counter()
+        rows = fn(mt.gene, mt.w, pheno, mt.GT.n_alt_alleles(),
+                  [1.0, mt.c0]).collect()
+        out[f'{what}_s'] = time.perf_counter() - t0
+        if what == 'linear':
+            beta = np.linalg.lstsq(X, y, rcond=None)[0]
+            resid = y - X @ beta
+            scale = 2 * float(resid @ resid) / (n - 2)
+        else:
+            resid, scale = yb - logistic_null_mu(X, yb), 2.0
+        err, p = skat_rows_check(rows, G, w, resid, scale, what)
+        out[f'{what}_q_max_rel_err'] = err
+        out[f'{what}_planted_p'] = p
+        log(f'SKAT {what}, {n} samples x {m} variants in {m // SKAT_GROUP} '
+            f'genes of {SKAT_GROUP}: {out[f"{what}_s"]:.3f} s with the collect '
+            f'of its rows; every group p in [0, 1] and fault 0, q_stat of '
+            f'{SKAT_CHECK_GROUPS} genes equal numpy (max rel err {err:.3g}), '
+            f'the planted gene p {p:.3g}')
+    return out
+
+
+def ld_score_oracle(G, gp, rows, radius):
+    """The scores of `rows` by the reference's formula in numpy f64: r
+    between rows of G centred and scaled to unit norm."""
+    c = G - G.mean(axis=1, keepdims=True)
+    ss = np.sqrt((c * c).sum(axis=1, keepdims=True))
+    Z = np.where(ss > 0, c / np.where(ss > 0, ss, 1), 0.0)
+    r = Z[rows] @ Z.T
+    r2 = r * r
+    r2 = r2 - (1 - r2) / max(Z.shape[1] - 2, 1)
+    return (r2 * (np.abs(gp[rows, None] - gp[None, :]) <= radius)).sum(axis=1)
+
+
+def phase_ld_score(hl, rng):
+    """hl.experimental.ld_score over LDS_SAMPLES x LDS_VARIANTS in LDS_PARTS
+    partitions (the last on chromosome 2), a variant every LDS_SPACING bp,
+    LD that decays along the genome (each call redrawn from its left
+    neighbour's with probability 0.3), 2% missing, radius LDS_RADIUS:
+    LDS_CHECK_ROWS rows spread over the partitions held to numpy. Returns
+    (figures, ops/ldscore's device args, the global positions)."""
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ops import ldscore
+    n, m = LDS_SAMPLES, LDS_VARIANTS
+    nalt = np.empty((m, n), np.int32)
+    nalt[0] = rng.integers(0, 3, n)
+    for i in range(1, m):
+        nalt[i] = np.where(rng.random(n) < 0.3, rng.integers(0, 3, n),
+                           nalt[i - 1])
+    miss = rng.random((m, n)) < MISSING
+    block = m // LDS_PARTS
+    contigs = (np.arange(m) >= (LDS_PARTS - 1) * block).astype(np.int32)
+    pos = (10_000 + LDS_SPACING * np.where(contigs == 0, np.arange(m),
+                                           np.arange(m) - (LDS_PARTS - 1) * block)
+           ).astype(np.int32)
+    mt = calls_mt(split_parts(nalt, miss, LDS_PARTS, contigs, pos), n, {})
+    out = {}
+    with Spy(ldscore, 'ld_scores') as host, \
+            Spy(ldscore, 'window_scores', keep=True) as op:
+        t0 = time.perf_counter()
+        scores = _row_arrays(hl.experimental.ld_score(
+            mt.GT.n_alt_alleles(), mt.locus, radius=LDS_RADIUS),
+            ('ld_score',))['ld_score']
+        out['ld_score_s'] = time.perf_counter() - t0
+    if op.count() != 1:
+        raise AssertionError(f'ld_score: ops/ldscore ran {op.count()} times')
+    out['ops_ldscore_s'] = host.total()
+    op_args = op.last['window_scores'][0]
+    rg = default_reference()
+    offsets = np.asarray([rg._global_offsets[c] for c in rg.contigs], np.int64)
+    gp = offsets[contigs] + pos.astype(np.int64) - 1
+    rows = np.linspace(0, m - 1, LDS_CHECK_ROWS).astype(np.int64)
+    want = ld_score_oracle(mean_imputed(nalt, miss), gp, rows, LDS_RADIUS)
+    err = np.abs(scores[rows] - want) / np.abs(want)
+    if scores.shape != (m,) or not np.isfinite(scores).all() \
+            or not (err <= 1e-10).all():
+        raise AssertionError(f'ld_score: {int((err > 1e-10).sum())} of '
+                             f'{LDS_CHECK_ROWS} rows differ from numpy')
+    window = np.abs(gp[:, None] - gp[None, :]) <= LDS_RADIUS
+    out.update(ld_score_max_rel_err=float(err.max()),
+               window_min=int(window.sum(axis=1).min()),
+               window_max=int(window.sum(axis=1).max()),
+               pairs_in_windows=int(window.sum()))
+    log(f'ld_score, {n} samples x {m} variants, radius {LDS_RADIUS}: '
+        f'{out["ld_score_s"]:.3f} s (ops/ldscore with its copies '
+        f'{out["ops_ldscore_s"]:.3f} s); windows of {out["window_min"]}-'
+        f'{out["window_max"]} variants; {LDS_CHECK_ROWS} rows equal numpy '
+        f'(max rel err {out["ld_score_max_rel_err"]:.3g}); scores '
+        f'{scores.min():.3f}-{scores.max():.3f}')
+    return out, op_args, gp
+
+
+def phase_mating(hl, rng):
+    """hl.simulate_random_mating of MATING_SAMPLES x MATING_VARIANTS in
+    MATING_PARTS partitions (2% missing), two rounds, founders kept: every
+    child's call takes one allele from each recorded parent's call and is
+    missing exactly where either parent's is."""
+    from hail_tpu_torch.genetics.call import calls_allele_j, calls_allele_k
+    mt, _, _, _ = build_mt(hl, rng, MATING_SAMPLES,
+                           MATING_VARIANTS // MATING_PARTS, MATING_PARTS,
+                           with_pheno=False)
+    t0 = time.perf_counter()
+    sim = hl.simulate_random_mating(mt, n_rounds=2, keep_founders=True)
+    st = sim._stage
+    gts = [st.partition_fn(c).entries['GT'] for c in st.contexts]
+    cols = st.cols.to_pylist()
+    seconds = time.perf_counter() - t0
+    packed = np.concatenate([np.asarray(g.values) for g in gts])
+    miss = np.concatenate([g.missing_mask() for g in gts])
+    j, k = calls_allele_j(packed), calls_allele_k(packed)
+    n_cols = 4 * MATING_SAMPLES
+    if packed.shape != (MATING_VARIANTS, n_cols) or len(cols) != n_cols:
+        raise AssertionError(f'simulate_random_mating: {packed.shape}')
+    child = np.asarray([i for i, c in enumerate(cols) if c.mother is not None])
+    mo = np.asarray([cols[i].mother for i in child])
+    fa = np.asarray([cols[i].father for i in child])
+    if len(child) != 3 * MATING_SAMPLES or not ((mo < child) & (fa < child)).all():
+        raise AssertionError('simulate_random_mating: parents are not earlier '
+                             'columns')
+    want_miss = miss[:, mo] | miss[:, fa]
+    if not np.array_equal(miss[:, child], want_miss):
+        raise AssertionError('simulate_random_mating: missing calls differ')
+    x, y = j[:, child], k[:, child]
+
+    def has(a, col):
+        return (a == j[:, col]) | (a == k[:, col])
+    ok = (has(x, mo) & has(y, fa)) | (has(y, mo) & has(x, fa)) | want_miss
+    if not ok.all():
+        raise AssertionError(f'simulate_random_mating: {int((~ok).sum())} '
+                             f'child calls not made of their parents\' alleles')
+    log(f'simulate_random_mating of {MATING_SAMPLES} x {MATING_VARIANTS}, two '
+        f'rounds, founders kept: {seconds:.3f} s for {n_cols} columns; every '
+        f'child call of {len(child)} children holds an allele of each parent\'s '
+        f'call, missing exactly where a parent\'s is ({int(want_miss.sum())} '
+        f'calls)')
+    return dict(seconds=seconds, columns=n_cols)
+
+
+def statgen_device_ops(lmm_args, lds_args, gp):
+    """ops/lmm and ops/ldscore timed on the tensors the methods gave them,
+    against their bounds (f64 at F64_FLOPS_PER_S)."""
+    from hail_tpu_torch.ops import ldscore, lmm
+    pa, wpx, w, r0 = lmm_args
+    n, m = pa.shape
+    k = wpx.shape[1]
+    lmm_ms = timed_ms(lambda: lmm.contractions(pa, wpx, w, r0))
+    read_ms = timed_ms(lambda: pa.sum(dim=0))
+    # bytes: pa, wpx, w and r0 read once, the (k + 2, m) block written;
+    # operations: the product's 2(k + 1)nm and w·pa² summed, 3nm
+    lb = bound(8 * (n * m + n * k + 2 * n + (k + 2) * m),
+               (2 * (k + 1) + 3) * n * m, F64_FLOPS_PER_S, 'f64_mma')
+    Z, g, n_samples, radius = lds_args
+    mv, nv = Z.shape
+    lds_ms = timed_ms(lambda: ldscore.window_scores(Z, g, n_samples, radius),
+                      reps=3)
+    prod_ms = timed_ms(lambda: Z @ Z.T, reps=3)
+    # operations: the reference's whole r = Z·Zᵀ, 2m²n; r is symmetric, so
+    # its upper half, m(m + 1)n, would do, and the windows need only their
+    # pairs' products
+    db = bound(8 * (mv * nv + 2 * mv), 2 * mv * mv * nv, F64_FLOPS_PER_S,
+               'f64_mma')
+    pairs = int((np.abs(gp[:, None] - gp[None, :]) <= LDS_RADIUS).sum())
+    half_ms = mv * (mv + 1) * nv / F64_FLOPS_PER_S * 1e3
+    window_ms = 2 * pairs * nv / F64_FLOPS_PER_S * 1e3
+    log(f'ops/lmm {n} x {m}, k {k}: {lmm_ms:.4f} ms (bound '
+        f'{lb["bound_ms"]:.4f} ms, {lb["bound_by"]}; a read of pa '
+        f'{read_ms:.4f} ms); ops/ldscore {mv} x {nv}: {lds_ms:.4f} ms (bound '
+        f'{db["bound_ms"]:.4f} ms, the upper half {half_ms:.4f} ms, the '
+        f'windows\' pairs {window_ms:.4f} ms; Z·Zᵀ alone {prod_ms:.4f} ms)')
+    return [
+        dict(name='ops/lmm', source='hail_tpu_torch/ops/lmm.py',
+             replaces='hail_tpu/stats/linear_mixed_model.py:196-206',
+             shape=f'{n} samples x {m} variants, k = {k}',
+             launches_per_call=1, ms=lmm_ms, **lb,
+             share_of_bound=lb['bound_ms'] / lmm_ms,
+             yardstick='pa.sum(dim=0): one read of pa (torch)',
+             yardstick_ms=read_ms),
+        dict(name='ops/ldscore', source='hail_tpu_torch/ops/ldscore.py',
+             replaces='hail_tpu/experimental/__init__.py:265-272',
+             shape=f'{mv} variants x {nv} samples, strips of '
+                   f'{ldscore.STRIP}, radius {radius}',
+             launches_per_call=1, ms=lds_ms, **db,
+             share_of_bound=db['bound_ms'] / lds_ms,
+             yardstick='Z @ Z.T alone (torch.matmul f64)',
+             yardstick_ms=prod_ms, upper_half_bound_ms=half_ms,
+             window_pairs_bound_ms=window_ms)]
+
+
+def phase_statgen_rest(hl, dev, rng):
+    """The rest of statgen: the LMM (full and low rank), SKAT (linear and
+    logistic), hl.experimental.ld_score and simulate_random_mating, each
+    held to numpy, then ops/lmm and ops/ldscore timed. Returns (figures,
+    device-op records)."""
+    out = {}
+    out['lmm'], lmm_args = phase_lmm(hl, rng)
+    out['skat'] = phase_skat(hl, rng)
+    out['ld_score'], lds_args, gp = phase_ld_score(hl, rng)
+    out['simulate_random_mating'] = phase_mating(hl, rng)
+    ops = statgen_device_ops(lmm_args, lds_args, gp)
+    return out, ops
+
+
 def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
     import hail_tpu_torch as hl
@@ -2303,6 +2796,9 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     qc, k5, n_qc, agg_op = phase_qc(hl, dev, rng)
     records.append(k5)
     device_ops.append(agg_op)
+    # the rest of statgen: the LMM, SKAT, ld_score, simulate_random_mating
+    rest, rest_ops = phase_statgen_rest(hl, dev, rng)
+    device_ops += rest_ops
     per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
     per_call['hail_ibs_counts'] = n_ibd['hail_ibs_counts']
     per_call['hail_variant_qc'] = n_qc['hail_variant_qc']
@@ -2329,7 +2825,7 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
     return (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
-            qc)
+            qc, rest)
 
 
 def li_pair(dev, nalt, miss):
@@ -2355,7 +2851,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
-     qc) = run(dev)
+     qc, rest) = run(dev)
     log(f'run: {time.perf_counter() - t0:.1f} s, the kernels\' build included')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -2364,7 +2860,8 @@ def main() -> int:
                       'glm_variants_per_s': glm, 'glm_seconds': glm_s,
                       'ibd_seconds': ibd, 'ld_prune': ld,
                       'blockmatrix_methods': bm_methods,
-                      'relatedness': rel, 'qc_seconds': qc}))
+                      'relatedness': rel, 'qc_seconds': qc,
+                      'statgen_rest': rest}))
     op_order = ('name', 'source', 'replaces', 'shape', 'launches_per_call',
                 'ms', 'bound_ms', 'bound_by', 'bound_unit', 'share_of_bound',
                 'yardstick', 'yardstick_ms')

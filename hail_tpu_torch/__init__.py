@@ -110,7 +110,8 @@ from .expr import aggregators as agg
 from .expr import scans as scan
 from . import methods as _methods_mod
 from .methods import *  # noqa: F401,F403
-from .methods.statgen import (_linear_regression_rows_nd,
+from .methods.statgen import (_linear_skat, _logistic_skat,
+                              _linear_regression_rows_nd,
                               _logistic_regression_rows_nd)
 from .methods.pca import (_blanczos_pca, _hwe_normalized_blanczos,
                           _pca_and_moments, _spectral_moments)
@@ -122,6 +123,7 @@ from .utils.hadoop import (hadoop_open, hadoop_copy, hadoop_exists,
                            hadoop_is_file, hadoop_is_dir, hadoop_stat,
                            hadoop_ls, hadoop_scheme_supported,
                            TemporaryDirectory, TemporaryFilename)
+from . import experimental
 from . import stats
 from . import fs
 from .io.native import query_table as query_table, \

@@ -3,8 +3,9 @@
 The MatrixTable/Table/expression machinery is numpy host code that both
 packages share in substance. This script copies the modules the port's
 methods import, renames their `hail_tpu` imports to `hail_tpu_torch`, and
-applies the few edits at the points where the reference reaches device
-code that is not ported yet (each names its ROADMAP item). Re-running it
+applies the few edits the port needs, each with its reason (most at points
+where the reference reaches device code that is not ported yet, each
+naming its ROADMAP item). Re-running it
 reproduces the committed copies exactly; an edit whose anchor text is not
 found once fails the run.
 
@@ -39,6 +40,7 @@ COPIED = [
     'io/bgen.py', 'io/avro.py',
     'native/__init__.py', 'native/hail_native.cpp',
     'methods/impex.py', 'methods/qc.py', 'nd/__init__.py',
+    'experimental', 'resources/datasets.json',
 ]
 
 # `import`/`from` statements and the by-name imports `__import__('…')`,
@@ -70,13 +72,19 @@ _DEVICE_SORT_NEW = '''    # ops/device_sort is not ported yet (ROADMAP queue 1, 
     return None
 '''
 
-# stats/linear_mixed_model (jax) is not ported yet (ROADMAP queue 1, item 5)
-_STATS_INIT_OLD = '''from .linear_mixed_model import LinearMixedModel
-
-__all__ = ['hwe_test', 'hwe_test_vec', 'LinearMixedModel']
+# ld_score's r = Z·Zᵀ, its r² adjustment and the window sums run on the
+# session's device, in row strips, so that only the m scores come back
+_LD_SCORE_OLD = '''    n = G.shape[1]
+    import jax.numpy as jnp
+    r = np.asarray(jnp.asarray(Z) @ jnp.asarray(Z).T)
+    r2 = r * r
+    # adjusted r2 (unbiased): r2_adj = r2 - (1 - r2)/(n - 2)
+    r2 = r2 - (1 - r2) / max(n - 2, 1)
+    mask = np.abs(gp[:, None] - gp[None, :]) <= radius
+    scores = (r2 * mask).sum(axis=1)
 '''
-_STATS_INIT_NEW = '''
-__all__ = ['hwe_test', 'hwe_test_vec']
+_LD_SCORE_NEW = '''    from ..ops.ldscore import ld_scores
+    scores = ld_scores(Z, gp, G.shape[1], radius)
 '''
 
 # backend/distributed (jax.distributed) is not ported yet: without this
@@ -203,12 +211,12 @@ EDITS = [
     ('backend/backend.py', _CACHE_FLAG_OLD, _CACHE_FLAG_NEW),
     ('ir/memcache.py', _MEMO_SIZE_OLD, _MEMO_SIZE_NEW),
     ('table.py', _DEVICE_SORT_OLD, _DEVICE_SORT_NEW),
-    ('stats/__init__.py', _STATS_INIT_OLD, _STATS_INIT_NEW),
     ('table.py', _MULTIHOST_SORT_OLD, _MULTIHOST_SORT_NEW),
     ('io/native.py', _PICKLE_IMPORTS_OLD, _PICKLE_IMPORTS_NEW),
     ('io/native.py', _PICKLE_HELPERS_OLD, _PICKLE_HELPERS_NEW),
     ('io/native.py', _PICKLE_DUMP_OLD, _PICKLE_DUMP_NEW),
     ('io/native.py', _PICKLE_LOAD_OLD, _PICKLE_LOAD_NEW),
+    ('experimental/__init__.py', _LD_SCORE_OLD, _LD_SCORE_NEW),
 ]
 
 

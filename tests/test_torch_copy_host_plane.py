@@ -13,7 +13,11 @@ def test_copies_are_reproduced(tmp_path):
     cp.copy_all(str(tmp_path))
     copied = [os.path.relpath(os.path.join(d, f), tmp_path)
               for d, _, files in os.walk(tmp_path) for f in files]
-    assert 'methods/qc.py' in copied and 'matrixtable.py' in copied
+    for rel in ('methods/qc.py', 'matrixtable.py', 'stats/__init__.py',
+                'experimental/__init__.py', 'experimental/extras.py',
+                'experimental/datasets.py', 'experimental/ldscsim.py',
+                'experimental/time.py', 'resources/datasets.json'):
+        assert rel in copied, rel
     differ = [rel for rel in copied if not filecmp.cmp(
         os.path.join(tmp_path, rel), os.path.join(cp.DST, rel), shallow=False)]
     assert differ == []
@@ -49,3 +53,22 @@ def test_no_copy_imports_the_reference_by_name():
                     text = fh.read()
                 assert "import_module('hail_tpu." not in text, f
                 assert '_imp("hail_tpu.' not in text, f
+
+
+def test_edits():
+    """`stats/__init__.py` is copied unedited (it exports LinearMixedModel,
+    which the port has), and `ld_score`'s device block is the one edit of
+    `experimental/__init__.py`."""
+    assert 'stats/__init__.py' not in [rel for rel, _, _ in cp.EDITS]
+    assert [rel for rel, _, _ in cp.EDITS].count('experimental/__init__.py') == 1
+    with open(os.path.join(cp.SRC, 'stats/__init__.py'), encoding='utf-8') as f:
+        ref = f.read()
+    with open(os.path.join(cp.DST, 'stats/__init__.py'), encoding='utf-8') as f:
+        assert f.read() == ref
+    with open(os.path.join(cp.DST, 'experimental/__init__.py'),
+              encoding='utf-8') as f:
+        text = f.read()
+    assert 'jax' not in text and 'ld_scores(Z, gp, G.shape[1], radius)' in text
+    with open(os.path.join(cp.DST, 'experimental/extras.py'),
+              encoding='utf-8') as f:
+        assert "__import__('hail_tpu_torch.utils.misc'" in f.read()

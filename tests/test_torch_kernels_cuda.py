@@ -35,7 +35,9 @@ at ragged shapes and at few, wide rows whose segments meet at ragged edges
 above A, DP and GQ apart, inputs off 16-byte boundaries in the same phase
 (the vector body behind a head) and in different phases (the scalar
 loop), and DP just below 2^19 at C = 10,001, near the top of the exact
-range. One call is one launch.
+range. One call is one launch. The linear mixed model's contractions
+(ops/lmm) and ld_score's window sums (ops/ldscore) have no kernel either:
+each is held to its run on the CPU within rtol 1e-12.
 """
 
 import numpy as np
@@ -645,3 +647,36 @@ def test_variant_qc_rejects_bad_input(dev):
         qc.variant_qc_block(p.t(), m.t(), None, None, 2, False, False)
     with pytest.raises(ValueError, match='CUDA'):
         qc.variant_qc_block(p, m.cpu(), None, None, 2, False, False)
+
+
+@pytest.mark.parametrize('n,m,k', [(97, 33, 2), (1024, 2500, 4)])
+def test_lmm_contractions_match_cpu(dev, n, m, k):
+    """ops/lmm (torch f64 on the card; no hand-written kernel) against the
+    same function on the CPU."""
+    from hail_tpu_torch.ops.lmm import contractions
+    rng = np.random.default_rng(n + m)
+    args = [torch.from_numpy(a) for a in (rng.normal(size=(n, m)),
+                                          rng.normal(size=(n, k)),
+                                          rng.random(n) + 0.5,
+                                          rng.normal(size=n))]
+    want = contractions(*args)
+    got = contractions(*(a.to(dev) for a in args))
+    assert got.device.type == 'cuda' and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize('m,n,radius', [(257, 40, 1000), (5000, 300, 2.5e4)])
+def test_ld_window_scores_match_cpu(dev, m, n, radius):
+    """ops/ldscore (torch f64 on the card, strips of STRIP rows) against the
+    same function on the CPU, with global positions past 2^24."""
+    from hail_tpu_torch.ops.ldscore import window_scores
+    rng = np.random.default_rng(m)
+    Z = rng.normal(size=(m, n))
+    Z /= np.linalg.norm(Z, axis=1, keepdims=True)
+    gp = (3_000_000_000 + np.cumsum(rng.integers(1, 300, m))).astype(np.int64)
+    z, g = torch.from_numpy(Z), torch.from_numpy(gp)
+    want = window_scores(z, g, n, radius)
+    got = window_scores(z.to(dev), g.to(dev), n, radius)
+    assert got.device.type == 'cuda' and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-12)

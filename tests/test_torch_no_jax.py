@@ -1,8 +1,9 @@
 """hail_tpu_torch imports and runs with jax blocked, and loads nothing of
-hail_tpu: its methods (QC, `summarize_variants` and the device tier of
-`aggregate_entries` among them), and every module of the file I/O, PCA
-and relatedness (imported; the C++ helpers of `native` are not built
-here).
+hail_tpu: its methods (QC, `summarize_variants`, the device tier of
+`aggregate_entries`, a linear mixed model with its regression rows, SKAT,
+`hl.experimental.ld_score` and `simulate_random_mating` among them), and
+every module of the file I/O, PCA and relatedness (imported; the C++
+helpers of `native` are not built here).
 In a subprocess: this test process has jax loaded already
 (tests/conftest.py imports it)."""
 
@@ -62,6 +63,17 @@ real = ea.run_device_entry_agg
 ea.run_device_entry_agg = lambda *a: ran.append(1) or real(*a)
 s = mt.aggregate_entries(hl.agg.stats(mt.GT.n_alt_alleles()))
 assert s.n == 40 * 30 and ran == [1, 1]
+model, _ = hl.linear_mixed_model(mt.y, [1.0], z_t=mt.GT.n_alt_alleles())
+model.fit()
+lmm = hl.linear_mixed_regression_rows(mt.GT.n_alt_alleles(), model).collect()
+assert len(lmm) == 30 and any(np.isfinite(r.p_value) for r in lmm)
+mt = mt.annotate_rows(gene=mt.locus.position % 3, w=1.0)
+sk = hl.skat(mt.gene, mt.w, mt.y, mt.GT.n_alt_alleles(), [1.0]).collect()
+assert len(sk) == 3 and all(0 <= r.p_value <= 1 for r in sk)
+ld = hl.experimental.ld_score(mt.GT.n_alt_alleles(), mt.locus, radius=5)
+assert all(r.ld_score > 0.5 for r in ld.collect())
+sim = hl.simulate_random_mating(mt, n_rounds=2)
+assert sim.count() == (30, 160)
 hl.stop()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'
