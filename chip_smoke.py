@@ -47,6 +47,16 @@ found), `hl.experimental.ld_score` on 10,000 x 8,192 with a 1 Mb radius
 (256 rows held to numpy) and `hl.simulate_random_mating` of 1,000 x 8,192
 over two rounds (every child call checked against its parents'), with
 the two device ops of that slice, ops/lmm and ops/ldscore, timed.
+Every phase so far runs on a mesh of the one card. Distribution last: on a
+mesh over every card of the host (over 4 slots of the one card where it
+has one), `BlockMatrix.from_entry_expr` of the relatedness shape, its
+products `bm @ bm.T` and `bm.T @ bm` and `hl.genetic_relatedness_matrix`,
+each sharded at rest and held to one device (1e-12 of its largest entry)
+and timed beside it; `device_range_sort` of 2^24 int64 keys and of f64
+keys with ties against numpy's stable argsort; `Table.order_by` of
+1,000,000 rows in 8 partitions against the host tier; `dryrun_multichip(4)`;
+and, on a host of two cards or more, tests/test_torch_multihost.py's
+checks in two processes over NCCL.
 It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
@@ -124,6 +134,16 @@ SKAT_PLANTED, SKAT_CHECK_GROUPS = 100, 64
 LDS_SAMPLES, LDS_VARIANTS, LDS_PARTS = 10_000, 8_192, 4
 LDS_RADIUS, LDS_SPACING, LDS_CHECK_ROWS = 1_000_000, 5_000, 256
 MATING_SAMPLES, MATING_VARIANTS, MATING_PARTS = 1_000, 8_192, 4
+# distribution (phase_distribution): a mesh over every card of the host, or
+# DIST_ONE_CARD_SLOTS slots on a host of one card; from_entry_expr, the
+# products and the GRM over the relatedness phase's shape (10,000 samples x
+# 8,192 variants in 4 partitions); the device sort over 2^24 keys;
+# Table.order_by of 1,000,000 rows in 8 partitions
+DIST_ONE_CARD_SLOTS = 4
+SORT_KEYS = 16_777_216
+ORDER_BY_ROWS, ORDER_BY_PARTS = 1_000_000, 8
+DIST_RTOL = 1e-12
+MULTIHOST_TIMEOUT_S = 120
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
@@ -2724,6 +2744,270 @@ def phase_statgen_rest(hl, dev, rng):
     return out, ops
 
 
+def pin_mesh(devices):
+    """Install a mesh over `devices` as the default mesh (its cache, as the
+    tests' fixtures do)."""
+    from hail_tpu_torch.parallel import mesh
+    mesh._mesh_cache = mesh.get_mesh(devices)
+    return mesh._mesh_cache
+
+
+def mesh_timed_ms(fn, devices, reps: int = 3, warm: bool = True):
+    """(mean milliseconds per call, the last call's result) from CUDA
+    events on every card among `devices`: an event before and after `reps`
+    calls on each card's stream, after one warm-up call unless `warm` is
+    False; the longest of the cards' spans."""
+    cards = sorted({d.index for d in devices})
+    if warm:
+        fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    starts = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    ends = {c: torch.cuda.Event(enable_timing=True) for c in cards}
+    for c in cards:
+        starts[c].record(torch.cuda.current_stream(c))
+    for _ in range(reps):
+        out = fn()
+    for c in cards:
+        ends[c].record(torch.cuda.current_stream(c))
+    for c in cards:
+        ends[c].synchronize()
+    return max(starts[c].elapsed_time(ends[c]) for c in cards) / reps, out
+
+
+def _near(got, want, what):
+    """max |got - want| within DIST_RTOL of want's largest entry."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= DIST_RTOL * scale:
+        raise AssertionError(f'{what}: {err:.3e} from one device (scale '
+                             f'{scale:.3e})')
+    return err
+
+
+def _spread(store, n_slots, what):
+    """A `Sharded` of n_slots blocks, none over total / n_slots."""
+    from hail_tpu_torch.parallel.mesh import Sharded
+    if not isinstance(store, Sharded) or len(store.shards) != n_slots:
+        raise AssertionError(f'{what}: not sharded over {n_slots} slots')
+    total = store.shape[0] * store.shape[1]
+    if max(t.numel() for t in store.shards) > total // n_slots:
+        raise AssertionError(f'{what}: a block over total / {n_slots}')
+
+
+def multihost_nccl(n_cards):
+    """tests/test_torch_multihost.py's four checks in two processes, each on
+    its own card, over NCCL. Returns the seconds, or None where the host
+    has one card: NCCL refuses two ranks on one card."""
+    import os
+    import socket
+    if n_cards < 2:
+        log('multihost: the two-process NCCL run was not run: this host has '
+            'one card, and NCCL refuses two ranks on one card')
+        return None
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        coord = f'127.0.0.1:{s.getsockname()[1]}'
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env['PYTHONPATH'] = root + os.pathsep + env.get('PYTHONPATH', '')
+    worker = os.path.join(root, 'tests', 'test_torch_multihost.py')
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, coord, '2', str(i),
+                               'cuda'], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env,
+                              cwd=root) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTIHOST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f'[p{i}] ALL OK' not in out:
+            raise AssertionError(f'multihost rank {i} failed:\n{out[-3000:]}')
+    seconds = time.perf_counter() - t0
+    log(f'multihost: two processes on cuda:0 and cuda:1 over NCCL passed '
+        f'alltoall_bytes, map_collect, an aggregate and a distributed '
+        f'order_by in {seconds:.2f} s')
+    return seconds
+
+
+def phase_distribution(hl, dev, rng):
+    """Distribution: the BlockMatrix sharded at rest with its sharded
+    product, the GRM's storage, the device range sort and Table.order_by's
+    device tier, dryrun_multichip(4), and the multihost backend over NCCL,
+    each held to one device (or numpy, or the host tier). Returns (figures,
+    device-op records)."""
+    from hail_tpu_torch.linalg import BlockMatrix
+    from hail_tpu_torch.linalg import blockmatrix as bm_mod
+    from hail_tpu_torch.ops import device_sort
+    from hail_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    one = [dev]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        slots = [torch.device('cuda', i) for i in range(n_cards)]
+        log(f'distribution: a mesh over the host\'s {n_cards} cards')
+    else:
+        slots = [dev] * DIST_ONE_CARD_SLOTS
+        log(f'distribution: one card: a mesh of {len(slots)} slots, all on '
+            f'{dev} (the sharded code runs; no block crosses a link)')
+    n_dev_cards = len({d.index for d in slots})
+    out = dict(cards=n_cards, slots=len(slots))
+
+    def on(devices, fn):
+        pin_mesh(devices)
+        try:
+            return fn()
+        finally:
+            pin_mesh(one)
+
+    mt, _, _, _ = build_mt(hl, rng, REL_SAMPLES, REL_VARIANTS // REL_PARTS,
+                           REL_PARTS, with_pheno=False)
+    x = mt.GT.n_alt_alleles()
+    t0 = time.perf_counter()
+    bm1 = BlockMatrix.from_entry_expr(x, mean_impute=True)
+    torch.cuda.synchronize()
+    out['from_entry_expr_one_device_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bms = on(slots, lambda: BlockMatrix.from_entry_expr(x, mean_impute=True))
+    for c in range(n_dev_cards):
+        torch.cuda.synchronize(c)
+    out['from_entry_expr_s'] = time.perf_counter() - t0
+    _spread(bms._store, len(slots), 'from_entry_expr')
+    if not torch.equal(bms._store.assemble(dev), bm1._store):
+        raise AssertionError('from_entry_expr: the sharded matrix differs '
+                             'from one device')
+    log(f'from_entry_expr of {REL_VARIANTS} x {REL_SAMPLES}: sharded '
+        f'{bms._store.spec} over {len(slots)} slots in '
+        f'{out["from_entry_expr_s"]:.3f} s (one device '
+        f'{out["from_entry_expr_one_device_s"]:.3f} s), equal bit for bit')
+
+    ops = []
+    for name, f in (('bm @ bm.T', lambda b: b @ b.T),
+                    ('bm.T @ bm', lambda b: b.T @ b)):
+        one_ms, want = mesh_timed_ms(lambda: f(bm1)._store, one)
+        with Spy(bm_mod, '_sharded_matmul') as spy:
+            got = on(slots, lambda: f(bms))
+        calls = len(spy.spent['_sharded_matmul'])
+        _spread(got._store, len(slots), name)
+        err = _near(got._store.assemble(dev), want, name)
+        ms, _ = on(slots, lambda: mesh_timed_ms(lambda: f(bms)._store, slots))
+        n, m = want.shape
+        k = bm1.shape[1] if name == 'bm @ bm.T' else bm1.shape[0]
+        bnd = bound(8 * (2 * n * k + n * m), 2 * n * m * k, F64_FLOPS_PER_S,
+                    'f64_mma')
+        bnd['bound_ms'] /= n_dev_cards
+        log(f'_sharded_matmul {name} ({n} x {k} x {m}): {ms:.4f} ms over '
+            f'{len(slots)} slots on {n_dev_cards} card(s), one device '
+            f'{one_ms:.4f} ms, bound {bnd["bound_ms"]:.4f} ms; within '
+            f'{err:.2e} of one device')
+        ops.append(dict(
+            name='_sharded_matmul', source='hail_tpu_torch/linalg/blockmatrix.py',
+            replaces='hail_tpu/linalg/blockmatrix.py:751',
+            shape=f'{name}: ({n} x {k}) @ ({k} x {m}) f64, {len(slots)} '
+                  f'slots on {n_dev_cards} card(s)',
+            launches_per_call=calls, ms=ms, **bnd,
+            share_of_bound=bnd['bound_ms'] / ms,
+            yardstick='the one-device product (torch.matmul f64, one card)',
+            yardstick_ms=one_ms, max_abs_err=err))
+        del got, want
+
+    grm_one_ms, grm1 = mesh_timed_ms(
+        lambda: hl.genetic_relatedness_matrix(mt.GT), one, reps=1, warm=False)
+    grm_ms, grms = on(slots, lambda: mesh_timed_ms(
+        lambda: hl.genetic_relatedness_matrix(mt.GT), slots, reps=1,
+        warm=False))
+    _spread(grms._store, len(slots), 'genetic_relatedness_matrix')
+    grm_err = _near(grms._store.assemble(dev), grm1._store,
+                    'genetic_relatedness_matrix')
+    grm_bound = 2 * REL_SAMPLES ** 2 * REL_VARIANTS / F64_FLOPS_PER_S * 1e3
+    out['grm'] = dict(ms=grm_ms, one_device_ms=grm_one_ms,
+                      f64_bound_ms=grm_bound / n_dev_cards, max_abs_err=grm_err)
+    log(f'genetic_relatedness_matrix {REL_SAMPLES}²: {grm_ms:.1f} ms sharded '
+        f'{grms._store.spec} (one device {grm_one_ms:.1f} ms; the f64 product '
+        f'bound {grm_bound / n_dev_cards:.4f} ms), within {grm_err:.2e} of '
+        'one device')
+    del bm1, bms, grm1, grms
+
+    keys_i = rng.integers(-2 ** 62, 2 ** 62, SORT_KEYS, dtype=np.int64)
+    keys_f = np.round(rng.normal(size=SORT_KEYS) * 64) / 4     # ties
+    out['device_range_sort'] = {}
+    for label, keys, asc in (('int64', keys_i, True),
+                             ('float64 with ties, descending', keys_f, False)):
+        t0 = time.perf_counter()
+        want = np.argsort(keys if asc else -keys, kind='stable')
+        np_s = time.perf_counter() - t0
+        ms, order = on(slots, lambda: mesh_timed_ms(
+            lambda: device_sort.device_range_sort(keys, asc), slots, reps=2))
+        if not np.array_equal(order, want):
+            raise AssertionError(f'device_range_sort ({label}): not numpy\'s '
+                                 'stable argsort')
+        lib_ms, _ = mesh_timed_ms(lambda: torch.sort(
+            torch.from_numpy(keys if asc else -keys).to(dev),
+            stable=True).indices.cpu(), one, reps=2)
+        bnd = bound(16 * SORT_KEYS)
+        out['device_range_sort'][label] = dict(ms=ms, numpy_s=np_s,
+                                               library_ms=lib_ms)
+        log(f'device_range_sort of {SORT_KEYS} {label} keys over {len(slots)} '
+            f'slots: {ms:.2f} ms host to host (numpy\'s stable argsort '
+            f'{np_s * 1e3:.1f} ms; torch.sort on one card with the copies '
+            f'{lib_ms:.2f} ms), equal to numpy')
+        ops.append(dict(
+            name='device_range_sort', source='hail_tpu_torch/ops/device_sort.py',
+            replaces='hail_tpu/ops/device_sort.py:31',
+            shape=f'{SORT_KEYS} {label} keys, {len(slots)} slots on '
+                  f'{n_dev_cards} card(s), keys and order host arrays',
+            launches_per_call=1, ms=ms, **bnd,
+            share_of_bound=bnd['bound_ms'] / ms,
+            yardstick='torch.sort(stable=True) on one card, with the copy of '
+                      'the keys in and of the order out',
+            yardstick_ms=lib_ms, numpy_ms=np_s * 1e3))
+    del keys_i, keys_f, want, order
+
+    t = hl.utils.range_table(ORDER_BY_ROWS, n_partitions=ORDER_BY_PARTS)
+    t = t.annotate(k=hl.int64((t.idx * 2654435761) % 500_009))
+    with Spy(device_sort, 'device_range_sort') as spy:
+        t0 = time.perf_counter()
+        dev_parts = on(slots, lambda: t.order_by(t.k)._stage.collect_batches())
+        dev_s = time.perf_counter() - t0
+    hl._set_flags(use_device_sort='0')
+    try:
+        t0 = time.perf_counter()
+        host_parts = t.order_by(t.k)._stage.collect_batches()
+        host_s = time.perf_counter() - t0
+    finally:
+        hl._set_flags(use_device_sort='1')
+    sort_calls = len(spy.spent['device_range_sort'])
+    col = lambda parts, f: np.concatenate([b.columns[f].values for b in parts])
+    ks = col(dev_parts, 'k')
+    if (sort_calls != 1 or len(dev_parts) != len(slots)
+            or not np.array_equal(col(dev_parts, 'idx'), col(host_parts, 'idx'))
+            or not np.array_equal(ks, col(host_parts, 'k'))
+            or (np.diff(ks) < 0).any() or ks.shape[0] != ORDER_BY_ROWS):
+        raise AssertionError('Table.order_by: the device tier differs from '
+                             'the host tier')
+    out['order_by'] = dict(device_tier_s=dev_s, host_tier_s=host_s,
+                           partitions=len(dev_parts))
+    log(f'Table.order_by of {ORDER_BY_ROWS} rows in {ORDER_BY_PARTS} '
+        f'partitions: device tier {dev_s:.3f} s ({len(dev_parts)} output '
+        f'partitions, {sort_calls} device_range_sort), host tier '
+        f'{host_s:.3f} s; equal row for row')
+
+    dry = [slots[i % len(slots)] for i in range(4)]
+    t0 = time.perf_counter()
+    log(on(dry, lambda: dryrun_multichip(4)))
+    out['dryrun_s'] = time.perf_counter() - t0
+    out['multihost_nccl_s'] = multihost_nccl(n_cards)
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'distribution: the phase took {out["phase_s"]:.1f} s')
+    return out, ops
+
+
 def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
     import hail_tpu_torch as hl
@@ -2746,6 +3030,9 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
             log(f'ffma_rate: {line}')
 
     hl.init(device=str(dev), global_seed=0, quiet=True)
+    # the phases before phase_distribution run on a mesh of this one card,
+    # whatever the host has, so that their figures stay comparable
+    pin_mesh([dev])
     # no partition retries: a failure in any partition fails the run
     hl._set_flags(max_partition_attempts='1')
     import scipy.stats  # noqa: F401  (set-up: the p-values import it once)
@@ -2799,6 +3086,10 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     # the rest of statgen: the LMM, SKAT, ld_score, simulate_random_mating
     rest, rest_ops = phase_statgen_rest(hl, dev, rng)
     device_ops += rest_ops
+    # distribution: the sharded BlockMatrix, the device sort, the dry run
+    # and the multihost backend
+    dist, dist_ops = phase_distribution(hl, dev, rng)
+    device_ops += dist_ops
     per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
     per_call['hail_ibs_counts'] = n_ibd['hail_ibs_counts']
     per_call['hail_variant_qc'] = n_qc['hail_variant_qc']
@@ -2825,7 +3116,7 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
     return (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
-            qc, rest)
+            qc, rest, dist)
 
 
 def li_pair(dev, nalt, miss):
@@ -2851,7 +3142,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
-     qc, rest) = run(dev)
+     qc, rest, dist) = run(dev)
     log(f'run: {time.perf_counter() - t0:.1f} s, the kernels\' build included')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -2861,7 +3152,7 @@ def main() -> int:
                       'ibd_seconds': ibd, 'ld_prune': ld,
                       'blockmatrix_methods': bm_methods,
                       'relatedness': rel, 'qc_seconds': qc,
-                      'statgen_rest': rest}))
+                      'statgen_rest': rest, 'distribution': dist}))
     op_order = ('name', 'source', 'replaces', 'shape', 'launches_per_call',
                 'ms', 'bound_ms', 'bound_by', 'bound_unit', 'share_of_bound',
                 'yardstick', 'yardstick_ms')

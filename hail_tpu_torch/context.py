@@ -2,8 +2,9 @@
 
 Parity with reference `hail/python/hail/context.py` + `utils/java.py:38` (Env)
 + `HailFeatureFlags` — a fresh, JVM-free implementation. The backend is
-local; device work runs on the torch device chosen at `init(device=...)`
-(`current_device()`), a CUDA card or, for the tests, the CPU.
+local, or multihost over `torch.distributed`; device work runs on the torch
+device chosen at `init(device=...)` (`current_device()`), a CUDA card or,
+for the tests, the CPU.
 """
 
 from __future__ import annotations
@@ -207,17 +208,36 @@ def init(backend: str = 'local',
          device=None,
          **kwargs) -> None:
     """Initialize the session (cf. reference hl.init, context.py:159-290).
-    `backend` is 'local' ('spark' is accepted as its alias); `device` is
-    'cuda', 'cpu' or None (see `_resolve_device`)."""
+    `backend` is 'local' ('spark' is accepted as its alias) or
+    'multihost': one process of a `torch.distributed` group, joined with
+    the keyword arguments `coordinator_address` ('host:port' of rank 0),
+    `num_processes` and `process_id` (its rank), unless the group exists
+    already (backend/distributed.py). `device` is 'cuda', 'cpu' or None
+    (see `_resolve_device`); a multihost process given 'cuda' or None
+    takes the card of its rank on this host."""
     if Env._hc is not None:
         if idempotent:
             return
         Env._hc.backend.stop()
         Env._hc = None
-    if backend not in ('local', 'spark'):
-        raise ValueError(f'unknown backend {backend!r} (expected local)')
-    dev = _resolve_device(device)
-    b: Backend = LocalBackend(n_threads)
+    from .parallel.mesh import reset_mesh
+    reset_mesh()
+    if backend in ('local', 'spark'):
+        dev = _resolve_device(device)
+        b: Backend = LocalBackend(n_threads)
+    elif backend == 'multihost':
+        from .backend.distributed import MultihostBackend
+        rank = kwargs.pop('process_id', None)
+        if device in (None, 'cuda') and rank is not None:
+            device = f'cuda:{rank % max(torch.cuda.device_count(), 1)}'
+        dev = _resolve_device(device)
+        if dev.type == 'cuda':
+            torch.cuda.set_device(dev)
+        b = MultihostBackend(kwargs.pop('coordinator_address', None),
+                             kwargs.pop('num_processes', None), rank, dev)
+    else:
+        raise ValueError(
+            f'unknown backend {backend!r} (expected local or multihost)')
     tmp = tmp_dir or os.environ.get('TMPDIR', '/tmp')
     if log is None:
         # reference default is hail-<timestamp>.log in cwd; keep the session
@@ -234,6 +254,8 @@ def stop() -> None:
         Env._hc.backend.stop()
         Env._hc = None
     Env._device = None
+    from .parallel.mesh import reset_mesh
+    reset_mesh()
     from .ir import memcache
     memcache.clear()
 

@@ -3,11 +3,10 @@
 The MatrixTable/Table/expression machinery is numpy host code that both
 packages share in substance. This script copies the modules the port's
 methods import, renames their `hail_tpu` imports to `hail_tpu_torch`, and
-applies the few edits the port needs, each with its reason (most at points
-where the reference reaches device code that is not ported yet, each
-naming its ROADMAP item). Re-running it
-reproduces the committed copies exactly; an edit whose anchor text is not
-found once fails the run.
+applies the few edits the port needs, each with its reason (mostly where
+the reference reaches jax or its device code). Re-running it reproduces the
+committed copies exactly; an edit whose anchor text is not found once fails
+the run.
 
     python3 hail_tpu_torch/copy_host_plane.py
 """
@@ -49,27 +48,12 @@ _IMPORT_RE = re.compile(
     r"""(\bimport |\bfrom |__import__\(['"]|_imp\(['"]"""
     r"""|\bimport_module\(['"])hail_tpu\b""")
 
-_DEVICE_SORT_OLD = '''    from .ops.device_sort import device_range_sort, sortable_single_key
-    sk = sortable_single_key(batches, specs)
-    if sk is None:
-        return None
-    keys, asc = sk
-    order = device_range_sort(keys, asc)
-    if order is None:
-        return None
-    merged = Batch.concat(batches) if len(batches) > 1 else batches[0]
-    import jax
+# the device sort's output partitions: one per slot of the port's mesh
+_DEVICE_SORT_ND_OLD = '''    import jax
     nd = len(jax.devices())
-    bounds = [(i * len(order)) // nd for i in range(nd + 1)]
-    parts = [merged.gather(order[lo:hi])
-             for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
-    return TableStage.from_batches(stage.globals, [], stage.row_type,
-                                   parts or [Batch.empty(stage.row_type)])
 '''
-_DEVICE_SORT_NEW = '''    # ops/device_sort is not ported yet (ROADMAP queue 1, item 6): the host
-    # sort runs, as the reference's does under use_device_sort=0. Its port
-    # splits the order over torch.cuda.device_count() devices on CUDA, else 1.
-    return None
+_DEVICE_SORT_ND_NEW = '''    from .parallel.mesh import get_mesh
+    nd = get_mesh().size
 '''
 
 # ld_score's r = Z·Zᵀ, its r² adjustment and the window sums run on the
@@ -85,18 +69,6 @@ _LD_SCORE_OLD = '''    n = G.shape[1]
 '''
 _LD_SCORE_NEW = '''    from ..ops.ldscore import ld_scores
     scores = ld_scores(Z, gp, G.shape[1], radius)
-'''
-
-# backend/distributed (jax.distributed) is not ported yet: without this
-# edit every sort of more than one partition raised ModuleNotFoundError
-_MULTIHOST_SORT_OLD = '''    from .backend.distributed import MultihostBackend
-    be = Env.backend()
-    if isinstance(be, MultihostBackend) and be.process_count > 1:
-        return _multihost_sample_sort(stage, specs, be, samples_per_partition)
-'''
-_MULTIHOST_SORT_NEW = '''    # backend/distributed is not ported yet (ROADMAP queue 1, item 6): one
-    # process sorts, as the reference's does on a single-process backend;
-    # _multihost_sample_sort waits for that item's MultihostBackend.
 '''
 
 # Object columns are pickled. Files of both packages name their value
@@ -210,8 +182,7 @@ _MEMO_SIZE_NEW = '''        c = cols.pop()
 EDITS = [
     ('backend/backend.py', _CACHE_FLAG_OLD, _CACHE_FLAG_NEW),
     ('ir/memcache.py', _MEMO_SIZE_OLD, _MEMO_SIZE_NEW),
-    ('table.py', _DEVICE_SORT_OLD, _DEVICE_SORT_NEW),
-    ('table.py', _MULTIHOST_SORT_OLD, _MULTIHOST_SORT_NEW),
+    ('table.py', _DEVICE_SORT_ND_OLD, _DEVICE_SORT_ND_NEW),
     ('io/native.py', _PICKLE_IMPORTS_OLD, _PICKLE_IMPORTS_NEW),
     ('io/native.py', _PICKLE_HELPERS_OLD, _PICKLE_HELPERS_NEW),
     ('io/native.py', _PICKLE_DUMP_OLD, _PICKLE_DUMP_NEW),

@@ -1,14 +1,18 @@
-"""BlockMatrix: dense f64 linear algebra on the session's torch device.
+"""BlockMatrix: dense f64 linear algebra sharded over the device mesh.
 
 Port of hail_tpu/linalg/blockmatrix.py (capability parity with reference
-`hail/python/hail/linalg/blockmatrix.py:75`). The matrix is ONE float64
-tensor on the session's device (`context.current_device()`), and `@` is a
-torch product on that device. There is no mesh yet: the reference's
-sharded storage and collective product wait for the port of parallel/mesh
-(ROADMAP queue 1, item 9). Sparsify ops apply element masks, as the
-reference's do. `write` / `read` keep the reference's on-disk format
-(`data.npy` + `metadata.json`), so a matrix written by either package is
-read by the other.
+`hail/python/hail/linalg/blockmatrix.py:75`). The matrix is stored at rest
+over `parallel.mesh.get_mesh()`, laid out by the reference's
+`pick_2d_spec`: on a mesh of more than one slot a `Sharded` value (one
+float64 block per slot, each on its slot's device), on a one-device mesh
+one float64 tensor on that device. Constructors, the elementwise
+operators, `sparsify_*`, `T` and `@` (`_sharded_matmul`: output block
+(i, j) is A's row block i times B's column block j on the slot that holds
+it) work block by block; the other methods read `_data`, the matrix
+assembled on the mesh's first device, and shard their result again.
+Sparsify ops apply element masks, as the reference's do. `write` / `read`
+keep the reference's on-disk format (`data.npy` + `metadata.json`), so a
+matrix written by either package is read by the other.
 
 The torch default dtype is float32: every tensor made here is float64
 explicitly (the reference turns on jax x64 for the whole process).
@@ -24,6 +28,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import Sharded, get_mesh, pick_2d_spec, shard_2d
+
 DEFAULT_BLOCK_SIZE = 4096  # API parity: reference BlockMatrix.scala:107
 
 
@@ -32,21 +38,65 @@ def _device() -> torch.device:
     return current_device()
 
 
-def _place(data) -> torch.Tensor:
-    """`data` as a float64 tensor on the session's device (a copy of a host
-    array, so later writes to the array do not reach the matrix)."""
-    if isinstance(data, torch.Tensor):
-        return data.to(device=_device(), dtype=torch.float64)
-    return torch.tensor(np.asarray(data, dtype=np.float64), device=_device())
+def _shard_at_rest(data):
+    """Commit a matrix to float64 storage over the mesh. A `Sharded` value
+    over more than one slot and not replicated is kept in place (op results
+    come out laid out already); anything else is copied in (a host array
+    always, so later writes to it do not reach the matrix)."""
+    if isinstance(data, Sharded):
+        if data.mesh.size > 1 and not data.replicated:
+            return data
+        data = data.shards[0]
+    if not isinstance(data, torch.Tensor):
+        data = torch.tensor(np.asarray(data, dtype=np.float64))
+    return shard_2d(data.to(torch.float64))
+
+
+def _empty(shape: Tuple[int, int]):
+    """Uninitialized float64 storage for a matrix of `shape` on the mesh,
+    filled with `_write` before any read."""
+    mesh = get_mesh()
+    if mesh.size == 1:
+        return torch.empty(shape, dtype=torch.float64, device=mesh.flat[0])
+    return Sharded.empty(shape, pick_2d_spec(shape, mesh), mesh,
+                         torch.float64)
+
+
+def _write(store, r0: int, c0: int, block: torch.Tensor) -> None:
+    if isinstance(store, Sharded):
+        store.write(r0, c0, block)
+    else:
+        store[r0:r0 + block.shape[0], c0:c0 + block.shape[1]] = \
+            block.to(store.device)
+
+
+def _region(x, r0, r1, c0, c1, device) -> torch.Tensor:
+    """Rows r0:r1, columns c0:c1 of a tensor or a `Sharded` on `device`."""
+    if isinstance(x, Sharded):
+        return x.region(r0, r1, c0, c1, device)
+    return x[r0:r1, c0:c1].to(device)
+
+
+def _piece(o, r0, r1, c0, c1, device):
+    """The part of an operand `o` that meets block rows r0:r1, columns c0:c1
+    under numpy broadcasting, on `device` (a Python number as it is)."""
+    if not isinstance(o, torch.Tensor):
+        return o
+    if o.ndim == 2 and o.shape[0] != 1:
+        o = o[r0:r1]
+    if o.ndim >= 1 and o.shape[-1] != 1:
+        o = o[..., c0:c1]
+    return o.to(device)
 
 
 class BlockMatrix:
-    """Storage is ONE float64 tensor on the session's device; every
-    operation returns a new matrix (no method writes into `_data`)."""
+    """Storage (`_store`) is sharded over the mesh at construction, one
+    float64 tensor on a one-device mesh; every operation returns a new
+    matrix (no method writes into the storage)."""
 
     def __init__(self, data, block_size: int = DEFAULT_BLOCK_SIZE,
                  _sparse: bool = False):
-        self._data = _place(data)
+        self._store = _shard_at_rest(data)
         self._block_size = block_size
         # storage stays dense (zeroed dropped blocks); the flag tracks the
         # logical state, as in the reference
@@ -63,8 +113,15 @@ class BlockMatrix:
     @classmethod
     def fill(cls, n_rows: int, n_cols: int, value: float,
              block_size: int = DEFAULT_BLOCK_SIZE) -> 'BlockMatrix':
-        return cls(torch.full((n_rows, n_cols), float(value),
-                              dtype=torch.float64, device=_device()),
+        mesh = get_mesh()
+        shape = (n_rows, n_cols)
+
+        def full(r0, r1, c0, c1, dev):
+            return torch.full((r1 - r0, c1 - c0), float(value),
+                              dtype=torch.float64, device=dev)
+        if mesh.size == 1:
+            return cls(full(0, n_rows, 0, n_cols, mesh.flat[0]), block_size)
+        return cls(Sharded.build(shape, pick_2d_spec(shape, mesh), mesh, full),
                    block_size)
 
     @classmethod
@@ -80,12 +137,11 @@ class BlockMatrix:
         n, m = self.shape
         bs = self._block_size
         nbr = math.ceil(n / bs)
-        mask = torch.zeros((n, m), dtype=torch.bool, device=self._data.device)
+        mask = np.zeros((n, m), dtype=bool)
         for b in blocks:
             bi, bj = b % nbr, b // nbr
             mask[bi * bs:(bi + 1) * bs, bj * bs:(bj + 1) * bs] = True
-        return BlockMatrix(torch.where(mask, self._data, 0.0), bs,
-                           _sparse=True)
+        return self._masked(_host_mask(mask), sparse=True)
 
     def _map_dense(self, f) -> 'BlockMatrix':
         """Apply an expression-level function elementwise, including to
@@ -103,13 +159,14 @@ class BlockMatrix:
     def random(cls, n_rows: int, n_cols: int, block_size: int = DEFAULT_BLOCK_SIZE,
                seed: Optional[int] = None, gaussian: bool = True) -> 'BlockMatrix':
         """Standard normal (or uniform on [0, 1)) entries from a
-        torch.Generator on the session's device, seeded by `seed` or, if
-        None, by the session's seed sequence. The values are torch's, not
-        jax.random's: equal seeds give equal matrices on one device."""
+        torch.Generator on the mesh's first device, seeded by `seed` or, if
+        None, by the session's seed sequence, then sharded: equal seeds give
+        equal matrices on every mesh. The values are torch's, not
+        jax.random's."""
         if seed is None:
             from ..context import Env
             seed = Env.next_seed()
-        dev = _device()
+        dev = get_mesh().flat[0]
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         draw = torch.randn if gaussian else torch.rand
@@ -122,11 +179,11 @@ class BlockMatrix:
         """Build an (n_rows, n_cols) matrix from a MatrixTable entry expression
         (reference `blockmatrix.py` from_entry_expr → `entries_to_bm`).
 
-        STREAMS partitions into one device tensor: a first pass records the
+        STREAMS partitions into the mesh's blocks: a first pass records the
         per-partition row counts, then each partition is evaluated,
         imputed/centered/normalized (all row-local) on the host, copied into
-        its rows of the tensor and released — peak host memory is one
-        partition, never the full f64 matrix."""
+        the blocks its rows meet (on their devices) and released — peak
+        host memory is one partition, never the full f64 matrix."""
         from ..expr.expression import to_expr
         from ..matrixtable import MatrixTable
         from ..methods.statgen import _eval_entry_f64
@@ -157,14 +214,13 @@ class BlockMatrix:
         n_parts = len(st.contexts)
         counts = [st.materialize_partition(i).n_rows for i in range(n_parts)]
         starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-        out = torch.empty((int(starts[-1]), st.n_cols), dtype=torch.float64,
-                          device=_device())
+        out = _empty((int(starts[-1]), st.n_cols))
         for i in range(n_parts):
             mb = st.materialize_partition(i)
             G, M = _eval_entry_f64(mt, e, mb, i)
             G = process(np.asarray(G, dtype=np.float64), M)
-            out[int(starts[i]):int(starts[i + 1])] = torch.from_numpy(
-                np.ascontiguousarray(G))
+            _write(out, int(starts[i]), 0,
+                   torch.from_numpy(np.ascontiguousarray(G)))
             del G
         return cls(out, block_size)
 
@@ -205,16 +261,25 @@ class BlockMatrix:
 
     # -- properties --------------------------------------------------------
     @property
+    def _data(self) -> torch.Tensor:
+        """The whole matrix as one tensor: the storage itself on a one-device
+        mesh, else assembled on the mesh's first device (a new tensor)."""
+        s = self._store
+        if isinstance(s, Sharded):
+            return s.shards[0] if s.replicated else s.assemble()
+        return s
+
+    @property
     def shape(self) -> Tuple[int, int]:
-        return tuple(self._data.shape)
+        return tuple(self._store.shape)
 
     @property
     def n_rows(self) -> int:
-        return self._data.shape[0]
+        return self._store.shape[0]
 
     @property
     def n_cols(self) -> int:
-        return self._data.shape[1]
+        return self._store.shape[1]
 
     @property
     def is_sparse(self) -> bool:
@@ -222,80 +287,111 @@ class BlockMatrix:
 
     @property
     def T(self) -> 'BlockMatrix':
-        return BlockMatrix(self._data.T, self._block_size)
+        return BlockMatrix(self._store.T, self._block_size)
 
     def transpose(self) -> 'BlockMatrix':
         return self.T
 
     # -- element-wise ops --------------------------------------------------
     def _coerce(self, other):
+        """An operand as a `Sharded`, a float64 tensor or a Python number."""
         if isinstance(other, BlockMatrix):
-            return other._data
+            return other._store
         if isinstance(other, np.ndarray):
             if other.dtype.kind not in 'ifbu':
                 raise TypeError(
                     f'BlockMatrix operand must be numeric, found dtype '
                     f'{other.dtype}')
-            return _place(other)
+            return torch.tensor(other, dtype=torch.float64)
         if isinstance(other, torch.Tensor):
-            return _place(other)
+            return other.to(torch.float64)
         return other
 
+    def _map(self, fn) -> 'BlockMatrix':
+        s = self._store
+        return BlockMatrix(s.map(fn) if isinstance(s, Sharded) else fn(s),
+                           self._block_size)
+
+    def _elementwise(self, other, fn) -> 'BlockMatrix':
+        """`fn(self's entries, other's)` entry by entry (numpy broadcasting):
+        block by block where the result keeps this matrix's shape, on the
+        assembled matrices where broadcasting widens it."""
+        o = self._coerce(other)
+        s = self._store
+        if isinstance(s, Sharded):
+            if isinstance(o, Sharded) and o.same_layout(s):
+                return BlockMatrix(s.zip(o, fn), self._block_size)
+            if isinstance(o, Sharded):
+                o = o.assemble()
+            oshape = tuple(o.shape) if isinstance(o, torch.Tensor) else ()
+            if torch.broadcast_shapes(s.shape, oshape) == s.shape:
+                return BlockMatrix(s.map_span(
+                    lambda t, r0, r1, c0, c1:
+                    fn(t, _piece(o, r0, r1, c0, c1, t.device))),
+                    self._block_size)
+            s = s.assemble()
+        if isinstance(o, Sharded):
+            o = o.assemble()
+        if isinstance(o, torch.Tensor):
+            o = o.to(s.device)
+        return BlockMatrix(fn(s, o), self._block_size)
+
     def __add__(self, other):
-        return BlockMatrix(self._data + self._coerce(other), self._block_size)
+        return self._elementwise(other, lambda a, b: a + b)
 
     __radd__ = __add__
 
     def __sub__(self, other):
-        return BlockMatrix(self._data - self._coerce(other), self._block_size)
+        return self._elementwise(other, lambda a, b: a - b)
 
     def __rsub__(self, other):
-        return BlockMatrix(self._coerce(other) - self._data, self._block_size)
+        return self._elementwise(other, lambda a, b: b - a)
 
     def __mul__(self, other):
-        return BlockMatrix(self._data * self._coerce(other), self._block_size)
+        return self._elementwise(other, lambda a, b: a * b)
 
     __rmul__ = __mul__
 
     def __truediv__(self, other):
-        return BlockMatrix(self._data / self._coerce(other), self._block_size)
+        return self._elementwise(other, lambda a, b: a / b)
 
     def __rtruediv__(self, other):
-        return BlockMatrix(self._coerce(other) / self._data, self._block_size)
+        return self._elementwise(other, lambda a, b: b / a)
 
     def __pow__(self, x):
-        return BlockMatrix(self._data ** x, self._block_size)
+        return self._map(lambda t: t ** x)
 
     def __neg__(self):
-        return BlockMatrix(-self._data, self._block_size)
+        return self._map(lambda t: -t)
 
     def __pos__(self):
         return self
 
     def abs(self):
-        return BlockMatrix(torch.abs(self._data), self._block_size)
+        return self._map(torch.abs)
 
     def sqrt(self):
-        return BlockMatrix(torch.sqrt(self._data), self._block_size)
+        return self._map(torch.sqrt)
 
     def log(self):
-        return BlockMatrix(torch.log(self._data), self._block_size)
+        return self._map(torch.log)
 
     # -- matmul ------------------------------------------------------------
     def __matmul__(self, other) -> 'BlockMatrix':
         o = self._coerce(other)
-        if getattr(o, 'ndim', 2) == 2 and self._data.shape[1] != o.shape[0]:
+        if getattr(o, 'ndim', 2) == 2 and self.shape[1] != o.shape[0]:
             raise ValueError(
                 f'matmul: inner dimensions mismatch: {self.shape} @ '
                 f'{tuple(o.shape)}')
-        return BlockMatrix(self._data @ o, self._block_size)
+        return BlockMatrix(_sharded_matmul(self._store, o), self._block_size)
 
     dot = __matmul__
 
     def tree_matmul(self, other, splits: Optional[int] = None,
                     path_prefix: Optional[str] = None) -> 'BlockMatrix':
         """API parity with reference tree_matmul (inner-dimension
-        splitting); one device holds the whole product, so no tree."""
+        splitting); `_sharded_matmul` reads whole row and column panels, so
+        no tree."""
         return self @ other
 
     # -- reductions --------------------------------------------------------
@@ -346,14 +442,11 @@ class BlockMatrix:
         if isinstance(r, int) and isinstance(c, int):
             i = BlockMatrix._pos_index(r, n, 'row index')
             j = BlockMatrix._pos_index(c, m, 'col index')
-            return float(self._data[i, j])
+            return float(_region(self._store, i, i + 1, j, j + 1,
+                                 torch.device('cpu')))
         rs = BlockMatrix._range_to_keep(r, n)
         cs = BlockMatrix._range_to_keep(c, m)
         return BlockMatrix(self._data[rs, cs], self._block_size)
-
-    def _index(self, ix: Sequence[int]) -> torch.Tensor:
-        return torch.as_tensor(list(ix), dtype=torch.long,
-                               device=self._data.device)
 
     def filter_rows(self, rows: Sequence[int]) -> 'BlockMatrix':
         rows = list(rows)
@@ -361,7 +454,8 @@ class BlockMatrix:
         for i in rows:
             if not (0 <= i < n):
                 raise ValueError(f'filter_rows: index {i} out of range for {n} rows')
-        return BlockMatrix(self._data[self._index(rows)], self._block_size)
+        data = self._data
+        return BlockMatrix(data[_index(rows, data.device)], self._block_size)
 
     def filter_cols(self, cols: Sequence[int]) -> 'BlockMatrix':
         cols = list(cols)
@@ -369,28 +463,38 @@ class BlockMatrix:
         for j in cols:
             if not (0 <= j < m):
                 raise ValueError(f'filter_cols: index {j} out of range for {m} cols')
-        return BlockMatrix(self._data[:, self._index(cols)], self._block_size)
+        data = self._data
+        return BlockMatrix(data[:, _index(cols, data.device)], self._block_size)
 
     def filter(self, rows: Sequence[int], cols: Sequence[int]) -> 'BlockMatrix':
         return self.filter_rows(rows).filter_cols(cols)
 
     # -- sparsify (element masks; reference zeroes blocks) -----------------
+    def _masked(self, mask_of, sparse: bool = False) -> 'BlockMatrix':
+        """Entries zeroed where `mask_of(r0, r1, c0, c1, device)`, the mask
+        of rows r0:r1 and columns c0:c1, is False, block by block."""
+        def keep(t, r0, r1, c0, c1):
+            return torch.where(mask_of(r0, r1, c0, c1, t.device), t, 0.0)
+        s = self._store
+        out = (s.map_span(keep) if isinstance(s, Sharded)
+               else keep(s, 0, s.shape[0], 0, s.shape[1]))
+        return BlockMatrix(out, self._block_size, _sparse=sparse)
+
     def sparsify_band(self, lower: int = 0, upper: int = 0,
                       blocks_only: bool = False) -> 'BlockMatrix':
-        n, m = self.shape
-        dev = self._data.device
-        i = torch.arange(n, device=dev).reshape(-1, 1)
-        j = torch.arange(m, device=dev).reshape(1, -1)
-        if blocks_only:
-            bs = self._block_size
-            bi, bj = i // bs, j // bs
-            lo = (bj * bs) - (bi * bs + bs - 1)
-            hi = (bj * bs + bs - 1) - (bi * bs)
-            mask = (hi >= lower) & (lo <= upper)
-        else:
+        bs = self._block_size
+
+        def mask_of(r0, r1, c0, c1, dev):
+            i = torch.arange(r0, r1, device=dev).reshape(-1, 1)
+            j = torch.arange(c0, c1, device=dev).reshape(1, -1)
+            if blocks_only:
+                bi, bj = i // bs, j // bs
+                lo = (bj * bs) - (bi * bs + bs - 1)
+                hi = (bj * bs + bs - 1) - (bi * bs)
+                return (hi >= lower) & (lo <= upper)
             d = j - i
-            mask = (d >= lower) & (d <= upper)
-        return BlockMatrix(torch.where(mask, self._data, 0.0), self._block_size)
+            return (d >= lower) & (d <= upper)
+        return self._masked(mask_of)
 
     def sparsify_triangle(self, lower: bool = False, blocks_only: bool = False) -> 'BlockMatrix':
         n, m = self.shape
@@ -401,53 +505,60 @@ class BlockMatrix:
     def sparsify_row_intervals(self, starts: Sequence[int], stops: Sequence[int],
                                blocks_only: bool = False) -> 'BlockMatrix':
         n, m = self.shape
-        starts_a = self._index(starts).reshape(-1, 1)
-        stops_a = self._index(stops).reshape(-1, 1)
-        j = torch.arange(m, device=self._data.device).reshape(1, -1)
-        mask = (j >= starts_a) & (j < stops_a)
+        starts_a = np.asarray(list(starts), dtype=np.int64)
+        stops_a = np.asarray(list(stops), dtype=np.int64)
         if blocks_only:
             # keep whole blocks touched by any row's interval (reference
             # sparsify_row_intervals blocks_only semantics)
-            mask = self._block_hull(mask)
-        return BlockMatrix(torch.where(mask, self._data, 0.0),
-                           self._block_size, _sparse=True)
+            j = np.arange(m).reshape(1, -1)
+            mask = (j >= starts_a[:, None]) & (j < stops_a[:, None])
+            return self._masked(_host_mask(self._block_hull(mask)),
+                                sparse=True)
 
-    def _block_hull(self, mask: torch.Tensor) -> torch.Tensor:
+        def mask_of(r0, r1, c0, c1, dev):
+            j = torch.arange(c0, c1, device=dev).reshape(1, -1)
+            lo = torch.from_numpy(starts_a[r0:r1]).to(dev).reshape(-1, 1)
+            hi = torch.from_numpy(stops_a[r0:r1]).to(dev).reshape(-1, 1)
+            return (j >= lo) & (j < hi)
+        return self._masked(mask_of, sparse=True)
+
+    def _block_hull(self, mask: np.ndarray) -> np.ndarray:
         """Expand an element mask to whole (block_size x block_size) blocks:
         a block is kept if any of its elements is kept."""
         n, m = self.shape
         bs = self._block_size
         nb, mb = math.ceil(n / bs), math.ceil(m / bs)
         em = np.zeros((nb * bs, mb * bs), dtype=bool)
-        em[:n, :m] = mask.cpu().numpy()
+        em[:n, :m] = mask
         blocks = em.reshape(nb, bs, mb, bs).any(axis=(1, 3))
-        hull = np.repeat(np.repeat(blocks, bs, axis=0), bs, axis=1)[:n, :m]
-        return torch.from_numpy(np.ascontiguousarray(hull)).to(mask.device)
+        return np.repeat(np.repeat(blocks, bs, axis=0), bs, axis=1)[:n, :m]
 
     def sparsify_rectangles(self, rectangles: Sequence[Sequence[int]]) -> 'BlockMatrix':
         """Keep blocks overlapping any rectangle — block granularity, like
         the reference (blockmatrix.py sparsify_rectangles)."""
         n, m = self.shape
-        mask = torch.zeros((n, m), dtype=torch.bool, device=self._data.device)
+        mask = np.zeros((n, m), dtype=bool)
         for (r0, r1, c0, c1) in rectangles:
             mask[r0:r1, c0:c1] = True
-        return BlockMatrix(torch.where(self._block_hull(mask), self._data, 0.0),
-                           self._block_size, _sparse=True)
+        return self._masked(_host_mask(self._block_hull(mask)), sparse=True)
 
     densify = lambda self: self
 
     # -- conversions -------------------------------------------------------
     def to_numpy(self, _force_blocking: bool = False) -> np.ndarray:
-        a = self._data.cpu().numpy()
+        s = self._store
+        if isinstance(s, Sharded):
+            return s.to_numpy()
+        a = s.cpu().numpy()
         # on the CPU that is a view of the storage: copy it, so that a
         # caller's writes cannot reach the matrix
-        return a.copy() if self._data.device.type == 'cpu' else a
+        return a.copy() if s.device.type == 'cpu' else a
 
     def to_ndarray(self):
         return self.to_numpy()
 
     def cache(self) -> 'BlockMatrix':
-        self._data = _place(self._data)
+        self._store = _shard_at_rest(self._store)
         return self
 
     def persist(self, storage_level: str = 'MEMORY_AND_DISK') -> 'BlockMatrix':
@@ -630,17 +741,18 @@ class BlockMatrix:
         return DEFAULT_BLOCK_SIZE
 
     def ceil(self) -> 'BlockMatrix':
-        return BlockMatrix(torch.ceil(self._data), self._block_size)
+        return self._map(torch.ceil)
 
     def floor(self) -> 'BlockMatrix':
-        return BlockMatrix(torch.floor(self._data), self._block_size)
+        return self._map(torch.floor)
 
     def pad(self, n_rows: int, n_cols: int, value: float = 0.0) -> 'BlockMatrix':
         """Pad to (n_rows, n_cols) with `value` (used by blocked algorithms)."""
         r, c = self.shape
+        data = self._data
         out = torch.full((n_rows, n_cols), float(value), dtype=torch.float64,
-                         device=self._data.device)
-        out[:r, :c] = self._data
+                         device=data.device)
+        out[:r, :c] = data
         return BlockMatrix(out, self._block_size)
 
     @classmethod
@@ -717,6 +829,44 @@ class BlockMatrix:
         """Shared inner dimension for a matmul with `other`."""
         assert self.shape[1] == other.shape[0]
         return self.shape[1]
+
+
+def _index(ix: Sequence[int], device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(list(ix), dtype=torch.long, device=device)
+
+
+def _host_mask(mask: np.ndarray):
+    """`mask_of` for `BlockMatrix._masked` from a whole host mask."""
+    def mask_of(r0, r1, c0, c1, dev):
+        return torch.from_numpy(np.ascontiguousarray(mask[r0:r1, c0:c1])) \
+            .to(dev)
+    return mask_of
+
+
+def _sharded_matmul(a, b, mesh=None):
+    """A @ B laid out over the mesh (the default one unless given) by
+    `pick_2d_spec` of the product's shape: output block (i, j) is A's row
+    block i times B's column block j, both copied to the device of the slot
+    that holds the block and multiplied there (the reference lets XLA
+    schedule a SUMMA product over the same at-rest layout). On a one-device
+    mesh, one product."""
+    mesh = mesh or get_mesh()
+    if mesh.size == 1 or getattr(b, 'ndim', 2) != 2:
+        if isinstance(a, Sharded):
+            a = a.assemble()
+        if isinstance(b, Sharded):
+            b = b.assemble()
+        return a @ (b.to(a.device) if isinstance(b, torch.Tensor) else b)
+    k = a.shape[1]
+    shape = (a.shape[0], b.shape[1])
+    spec = pick_2d_spec(shape, mesh)
+    # every panel is gathered before any product is queued: a copy between
+    # two cards waits for the work queued on both, so a product queued
+    # between two blocks' copies would hold the next card back
+    panels = {ij: (_region(a, r0, r1, 0, k, dev), _region(b, 0, k, c0, c1, dev))
+              for ij, r0, r1, c0, c1, dev in Sharded.plan(shape, spec, mesh)}
+    return Sharded.from_blocks(shape, spec, mesh, {
+        ij: pa @ pb for ij, (pa, pb) in panels.items()})
 
 
 # module-level helpers mirroring hail.linalg utilities

@@ -1359,11 +1359,13 @@ def _normalized_genotype_matrix(call_expr) -> Tuple[np.ndarray, int]:
     return Z, m_used
 
 
-def _exact_grm(call_expr, device: torch.device) -> torch.Tensor:
+def _exact_grm(call_expr, device: torch.device):
     """The kinship by the exact int8 digit-plane products (ops/grm.py
     ExactGrm, the reference's accelerator route at
-    hail_tpu/methods/statgen.py:2046), its strips written into one
-    preallocated (n, n) f64 tensor on `device`."""
+    hail_tpu/methods/statgen.py:2046) on `device`, its strips written into
+    the (n, n) f64 storage of a BlockMatrix on the mesh: one tensor on a
+    one-device mesh, else the blocks that each strip meets."""
+    from ..linalg.blockmatrix import _empty, _write
     from ..ops.grm import ExactGrm
     e = to_expr(call_expr)
     ne = e.n_alt_alleles() if e.dtype == ht.tcall else e
@@ -1376,9 +1378,9 @@ def _exact_grm(call_expr, device: torch.device) -> torch.Tensor:
     ok = (2 * p * (1 - p) > 0) & (cnt > 0)
     g = ExactGrm(torch.from_numpy(np.where(M, 0, G).astype(np.int8)).to(device),
                  torch.from_numpy(M.astype(np.int8)).to(device), p, ok)
-    K = torch.empty((g.n, g.n), dtype=torch.float64, device=device)
-    for lo, hi, strip in g.strips(min(g.n, 8192)):
-        K[:, lo:hi] = strip
+    K = _empty((g.n, g.n))
+    for lo, _, strip in g.strips(min(g.n, 8192)):
+        _write(K, 0, lo, strip)
     return K
 
 

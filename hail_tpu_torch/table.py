@@ -2252,9 +2252,10 @@ def _sample_sort(stage: 'TableStage', specs: List[Tuple[str, bool]],
     per-destination all_to_all and no process ever materializes the whole
     table (_multihost_sample_sort).
     """
-    # backend/distributed is not ported yet (ROADMAP queue 1, item 6): one
-    # process sorts, as the reference's does on a single-process backend;
-    # _multihost_sample_sort waits for that item's MultihostBackend.
+    from .backend.distributed import MultihostBackend
+    be = Env.backend()
+    if isinstance(be, MultihostBackend) and be.process_count > 1:
+        return _multihost_sample_sort(stage, specs, be, samples_per_partition)
     batches = stage.collect_batches()
     batches = [b for b in batches if b.length]
     if not batches:
@@ -2315,10 +2316,22 @@ def _device_sample_sort(stage: 'TableStage', batches: List['Batch'],
             if Env.is_initialized() else '1')
     if str(flag) in ('0', 'false'):
         return None
-    # ops/device_sort is not ported yet (ROADMAP queue 1, item 6): the host
-    # sort runs, as the reference's does under use_device_sort=0. Its port
-    # splits the order over torch.cuda.device_count() devices on CUDA, else 1.
-    return None
+    from .ops.device_sort import device_range_sort, sortable_single_key
+    sk = sortable_single_key(batches, specs)
+    if sk is None:
+        return None
+    keys, asc = sk
+    order = device_range_sort(keys, asc)
+    if order is None:
+        return None
+    merged = Batch.concat(batches) if len(batches) > 1 else batches[0]
+    from .parallel.mesh import get_mesh
+    nd = get_mesh().size
+    bounds = [(i * len(order)) // nd for i in range(nd + 1)]
+    parts = [merged.gather(order[lo:hi])
+             for lo, hi in zip(bounds, bounds[1:]) if hi > lo]
+    return TableStage.from_batches(stage.globals, [], stage.row_type,
+                                   parts or [Batch.empty(stage.row_type)])
 
 
 def _multihost_sample_sort(stage: 'TableStage', specs: List[Tuple[str, bool]],

@@ -72,3 +72,20 @@ def test_edits():
     with open(os.path.join(cp.DST, 'experimental/extras.py'),
               encoding='utf-8') as f:
         assert "__import__('hail_tpu_torch.utils.misc'" in f.read()
+
+
+def test_sort_edits():
+    """The device sort and the multihost sort run as copied: the one edit
+    of `_device_sample_sort` counts the port's mesh slots in place of
+    `jax.devices()`, and `_sample_sort` keeps its multihost prologue."""
+    table_edits = [(old, new) for rel, old, new in cp.EDITS
+                   if rel == 'table.py']
+    assert table_edits == [(cp._DEVICE_SORT_ND_OLD, cp._DEVICE_SORT_ND_NEW)]
+    assert not hasattr(cp, '_DEVICE_SORT_OLD')
+    assert not hasattr(cp, '_MULTIHOST_SORT_OLD')
+    with open(os.path.join(cp.DST, 'table.py'), encoding='utf-8') as f:
+        text = f.read()
+    assert text.count(cp._DEVICE_SORT_ND_NEW) == 1 and 'import jax' not in text
+    assert text.count('return _multihost_sample_sort(stage, specs, be, '
+                      'samples_per_partition)') == 1
+    assert text.count('order = device_range_sort(keys, asc)') == 1

@@ -250,11 +250,16 @@ def test_from_entry_expr_refuses_missing_without_impute():
 
 
 def _read_bytes(path):
+    """Each file's bytes; a gzip file's header time (bytes 4-7, the moment
+    it was written) zeroed, so that two writes a second apart compare."""
     out = {}
     for dirpath, _, names in os.walk(path):
         for n in names:
             with open(os.path.join(dirpath, n), 'rb') as f:
-                out[os.path.relpath(os.path.join(dirpath, n), path)] = f.read()
+                data = f.read()
+            if data[:2] == b'\x1f\x8b':
+                data = data[:4] + bytes(4) + data[8:]
+            out[os.path.relpath(os.path.join(dirpath, n), path)] = data
     return out
 
 

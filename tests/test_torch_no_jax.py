@@ -1,9 +1,11 @@
 """hail_tpu_torch imports and runs with jax blocked, and loads nothing of
 hail_tpu: its methods (QC, `summarize_variants`, the device tier of
 `aggregate_entries`, a linear mixed model with its regression rows, SKAT,
-`hl.experimental.ld_score` and `simulate_random_mating` among them), and
-every module of the file I/O, PCA and relatedness (imported; the C++
-helpers of `native` are not built here).
+`hl.experimental.ld_score` and `simulate_random_mating` among them), every
+module of the file I/O, PCA and relatedness (imported; the C++ helpers of
+`native` are not built here), and distribution on a mesh of four CPU slots:
+`parallel.mesh`, `parallel.dryrun` (run), `ops.device_sort` (through
+`order_by`), a sharded BlockMatrix product and `backend.distributed`.
 In a subprocess: this test process has jax loaded already
 (tests/conftest.py imports it)."""
 
@@ -74,6 +76,22 @@ ld = hl.experimental.ld_score(mt.GT.n_alt_alleles(), mt.locus, radius=5)
 assert all(r.ld_score > 0.5 for r in ld.collect())
 sim = hl.simulate_random_mating(mt, n_rounds=2)
 assert sim.count() == (30, 160)
+import torch
+from hail_tpu_torch.parallel import mesh
+from hail_tpu_torch.parallel.dryrun import dryrun_multichip
+from hail_tpu_torch.ops.device_sort import device_range_sort
+from hail_tpu_torch.backend.distributed import MultihostBackend
+mesh._mesh_cache = mesh.get_mesh([torch.device('cpu')] * 4)
+assert dryrun_multichip(4).startswith('dryrun_multichip(4): ok')
+bm = hl.linalg.BlockMatrix.from_numpy(np.arange(32.0).reshape(8, 4))
+assert isinstance(bm._store, mesh.Sharded)
+assert np.array_equal((bm.T @ bm).to_numpy(),
+                      np.arange(32.0).reshape(8, 4).T @ np.arange(32.0).reshape(8, 4))
+t = hl.utils.range_table(40, n_partitions=3)
+s = t.order_by(hl.desc(t.idx))
+assert [r.idx for r in s.collect()] == list(range(39, -1, -1))
+assert len(s._stage.collect_batches()) == 4
+assert MultihostBackend().process_count == 1
 hl.stop()
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m == 'jax' or m.startswith('jax.') or m == 'hail_tpu'
