@@ -56,7 +56,17 @@ and timed beside it; `device_range_sort` of 2^24 int64 keys and of f64
 keys with ties against numpy's stable argsort; `Table.order_by` of
 1,000,000 rows in 8 partitions against the host tier; `dryrun_multichip(4)`;
 and, on a host of two cards or more, tests/test_torch_multihost.py's
-checks in two processes over NCCL.
+checks in two processes over NCCL. Then the VariantDataset, on one card
+again: a VDS of 1,000 samples x 1,024 sites in 4 partitions with the
+combiner's schema (LGT, LA, LAD, DP, GQ; reference blocks with END, DP,
+GQ) made from numpy with its dense truth beside it, written and read back
+with `hl.vds.read_vds`, `validate`d, `hl.vds.sample_qc` held to numpy,
+`hl.vds.lgt_to_gt`, `hl.vds.split_multi` and `hl.vds.to_dense_mt` held to
+the truth, and on the dense MatrixTable `hl.variant_qc` (K5) and
+`hl.linear_regression_rows` (K4 cold, K3) held to numpy; last
+`hl.mendel_errors` (64 planted errors found, no other) and
+`hl.transmission_disequilibrium_test` on 2,048 variants of
+`simulate_random_mating`'s output, each count held to numpy.
 It fails
 (non-zero exit, no result line) when there is no card, when a kernel does
 not build, launch or agree, when the main path did not launch every
@@ -144,6 +154,19 @@ SORT_KEYS = 16_777_216
 ORDER_BY_ROWS, ORDER_BY_PARTS = 1_000_000, 8
 DIST_RTOL = 1e-12
 MULTIHOST_TIMEOUT_S = 120
+# the VariantDataset (phase_vds): 1,000 samples x 1,024 variant sites in 4
+# partitions with the combiner's schema, not the 10,000 x 8,192 of the other
+# phases: split_multi, to_dense_mt, validate and the native writer build
+# Python objects per entry on the host, about 37 us an entry over the VDS
+# path on the card's host (38.0 s at 1,024 x 1,000; PERF.md), so the main
+# path's size would take about 52 minutes. 5% of the
+# sites tri-allelic, 2% of the entries uncovered, reference blocks of 1 to
+# 16 sites. Then mendel_errors and the TDT on the first 2,048 of the 8,192
+# variants of simulate_random_mating's output (phase_mating; 4,000
+# columns, all 8,192 took 26.7 s), with 64 planted Mendel errors
+VDS_SAMPLES, VDS_SITES, VDS_PARTS = 1_000, 1_024, 4
+VDS_TRIALLELIC, VDS_UNCOVERED, VDS_MAX_BLOCK, VDS_SPACING = 0.05, 0.02, 16, 10
+FAM_VARIANTS, FAM_PLANTED = 2_048, 64
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates at the
 # full 700 W): device memory, int8 on the tensor cores, f32 outside them.
@@ -2638,7 +2661,8 @@ def phase_mating(hl, rng):
     """hl.simulate_random_mating of MATING_SAMPLES x MATING_VARIANTS in
     MATING_PARTS partitions (2% missing), two rounds, founders kept: every
     child's call takes one allele from each recorded parent's call and is
-    missing exactly where either parent's is."""
+    missing exactly where either parent's is. Returns (figures, the
+    simulated MatrixTable, which phase_family takes)."""
     from hail_tpu_torch.genetics.call import calls_allele_j, calls_allele_k
     mt, _, _, _ = build_mt(hl, rng, MATING_SAMPLES,
                            MATING_VARIANTS // MATING_PARTS, MATING_PARTS,
@@ -2677,7 +2701,7 @@ def phase_mating(hl, rng):
         f'child call of {len(child)} children holds an allele of each parent\'s '
         f'call, missing exactly where a parent\'s is ({int(want_miss.sum())} '
         f'calls)')
-    return dict(seconds=seconds, columns=n_cols)
+    return dict(seconds=seconds, columns=n_cols), sim
 
 
 def statgen_device_ops(lmm_args, lds_args, gp):
@@ -2734,14 +2758,14 @@ def phase_statgen_rest(hl, dev, rng):
     """The rest of statgen: the LMM (full and low rank), SKAT (linear and
     logistic), hl.experimental.ld_score and simulate_random_mating, each
     held to numpy, then ops/lmm and ops/ldscore timed. Returns (figures,
-    device-op records)."""
+    device-op records, simulate_random_mating's MatrixTable)."""
     out = {}
     out['lmm'], lmm_args = phase_lmm(hl, rng)
     out['skat'] = phase_skat(hl, rng)
     out['ld_score'], lds_args, gp = phase_ld_score(hl, rng)
-    out['simulate_random_mating'] = phase_mating(hl, rng)
+    out['simulate_random_mating'], sim = phase_mating(hl, rng)
     ops = statgen_device_ops(lmm_args, lds_args, gp)
-    return out, ops
+    return out, ops, sim
 
 
 def pin_mesh(devices):
@@ -3008,6 +3032,526 @@ def phase_distribution(hl, dev, rng):
     return out, ops
 
 
+# ---------------------------------------------------------------------------
+# the VariantDataset and the family methods (phase_vds)
+# ---------------------------------------------------------------------------
+
+def build_vds(hl, rng, n_samples, n_sites, n_parts):
+    """A VariantDataset with the combiner's schema, built from numpy arrays
+    made from `rng`, with the dense truth beside it. Sites lie VDS_SPACING bp
+    apart on contig 1; VDS_TRIALLELIC of them are tri-allelic ([A, G, T]),
+    the others [A, G] and [A, T] in turn; allele frequencies from Beta(0.5,
+    4) (the third allele Beta(0.5, 8)), each site carried by one sample at
+    least. VDS_UNCOVERED of the entries have no data (no variant call and no
+    reference block). Variant data: LGT, LA, LAD, DP, GQ where a sample
+    carries an alternate allele; column fields pheno, c0, c1, c2 for the
+    GWAS. Reference data: END, DP, GQ, in blocks of 1 to VDS_MAX_BLOCK sites
+    (drawn per block) over every hom-ref entry, each ending 0 to
+    VDS_SPACING - 1 bp past its last site. Returns (vds, the truth: global
+    calls j <= k, the masks var, homref and uncovered, the dense DP and GQ,
+    LA, LAD and their widths, the alleles, the variant entries' DP and GQ,
+    the blocks' starts, lengths, DP and GQ, and the column arrays)."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.reference_genome import default_reference
+    from hail_tpu_torch.ir.columns import (Batch, DenseArrayColumn,
+                                           LocusColumn, ObjectColumn,
+                                           PrimitiveColumn)
+    from hail_tpu_torch.genetics.call import pack_diploid
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    V, N = n_sites, n_samples
+    pos = (100_000 + VDS_SPACING * np.arange(V)).astype(np.int32)
+    n_all = np.where(rng.random(V) < VDS_TRIALLELIC, 3, 2)
+    af1 = np.clip(rng.beta(0.5, 4.0, V), 0.005, 0.5)
+    af2 = np.where(n_all == 3, np.clip(rng.beta(0.5, 8.0, V), 0.005, 0.2), 0.0)
+    al = []
+    for _ in range(2):
+        u = rng.random((V, N))
+        al.append(np.where(u < af1[:, None], 1,
+                           np.where(u < (af1 + af2)[:, None], 2, 0))
+                  .astype(np.int8))
+    j, k = np.minimum(*al), np.maximum(*al)
+    uncovered = rng.random((V, N)) < VDS_UNCOVERED
+    var = (k > 0) & ~uncovered
+    none = np.flatnonzero(~var.any(axis=1))
+    s0 = none % N
+    j[none, s0], k[none, s0] = 0, 1
+    uncovered[none, s0], var[none, s0] = False, True
+    homref = ~var & ~uncovered
+    j[~var], k[~var] = 0, 0
+    alleles = [['A', 'G', 'T'] if n == 3 else (['A', 'G'] if i % 2 == 0
+                                               else ['A', 'T'])
+               for i, n in enumerate(n_all)]
+
+    # variant entries in local alleles: LA [0, k] (0/k or k/k) or [0, j, k]
+    width = np.where((j > 0) & (j < k), 3, 2).astype(np.int32)
+    la = np.zeros((V, N, 3), np.int32)
+    la[..., 1] = np.where(width == 3, j, k)
+    la[..., 2] = np.where(width == 3, k, 0)
+    lgt = pack_diploid((j > 0).astype(np.int32),
+                       np.where(width == 3, 2, 1).astype(np.int32))
+    lad = rng.integers(0, 30, (V, N, 3)).astype(np.int32)
+    lad[..., 2] = np.where(width == 3, lad[..., 2], 0)
+    v_dp = (lad.sum(axis=2) + rng.integers(0, 5, (V, N))).astype(np.int32)
+    v_gq = rng.integers(0, 99, (V, N), dtype=np.int32)
+
+    # reference blocks over the hom-ref entries, walked site by site
+    start = np.zeros((V, N), bool)
+    cover = np.full((V, N), -1, np.int64)
+    left = np.zeros(N, np.int64)
+    open_row = np.full(N, -1, np.int64)
+    for i in range(V):
+        h = homref[i]
+        cont = h & (left > 0) & (open_row >= 0)
+        new = h & ~cont
+        draw = rng.integers(1, VDS_MAX_BLOCK + 1, N)
+        left = np.where(new, draw - 1, np.where(cont, left - 1, 0))
+        open_row = np.where(h, np.where(new, i, open_row), -1)
+        start[i] = new
+        cover[i] = open_row
+    nxt = np.vstack([cover[1:], np.full((1, N), -1)])
+    last_r, last_s = np.nonzero((cover >= 0) & (nxt != cover))
+    r_end = np.zeros((V, N), np.int32)
+    r_end[cover[last_r, last_s], last_s] = (
+        pos[last_r] + rng.integers(0, VDS_SPACING, last_r.size))
+    r_dp = rng.integers(0, 60, (V, N), dtype=np.int32)
+    r_gq = rng.integers(0, 99, (V, N), dtype=np.int32)
+    rows_c = np.clip(cover, 0, None)
+    cols_idx = np.arange(N)[None, :]
+    dp = np.where(var, v_dp, r_dp[rows_c, cols_idx])
+    gq = np.where(var, v_gq, r_gq[rows_c, cols_idx])
+
+    cols_np = {name: rng.normal(size=N)
+               for name in ['pheno'] + [f'c{i}' for i in range(K - 1)]}
+    rg = default_reference()
+    s_col = ObjectColumn(ht.tstr, np.asarray([f's{i}' for i in range(N)],
+                                             object))
+    bounds = np.linspace(0, V, n_parts + 1).astype(int)
+    vmbs, rmbs = [], []
+    for p in range(n_parts):
+        sl = slice(bounds[p], bounds[p + 1])
+        R = int(bounds[p + 1] - bounds[p])
+        al_col = np.empty(R, dtype=object)
+        al_col[:] = alleles[sl]
+        f = ~var[sl]
+        rows = Batch({'locus': LocusColumn(ht.tlocus(rg), np.zeros(R, np.int32),
+                                           pos[sl]),
+                      'alleles': ObjectColumn(ht.tarray(ht.tstr), al_col)}, R)
+        vmbs.append(MatrixBatch(rows, {
+            'LGT': PrimitiveColumn(ht.tcall, lgt[sl], f),
+            'LA': DenseArrayColumn(ht.tarray(ht.tint32), la[sl], width[sl],
+                                   None, f),
+            'LAD': DenseArrayColumn(ht.tarray(ht.tint32), lad[sl], width[sl],
+                                    None, f),
+            'DP': PrimitiveColumn(ht.tint32, v_dp[sl], f),
+            'GQ': PrimitiveColumn(ht.tint32, v_gq[sl], f)}, f))
+        keep = np.flatnonzero(start[sl].any(axis=1))
+        f = ~start[sl][keep]
+        rows = Batch({'locus': LocusColumn(ht.tlocus(rg),
+                                           np.zeros(keep.size, np.int32),
+                                           pos[sl][keep])}, int(keep.size))
+        rmbs.append(MatrixBatch(rows, {
+            'END': PrimitiveColumn(ht.tint32, r_end[sl][keep], f),
+            'DP': PrimitiveColumn(ht.tint32, r_dp[sl][keep], f),
+            'GQ': PrimitiveColumn(ht.tint32, r_gq[sl][keep], f)}, f))
+    v_cols = {'s': s_col, **{n: PrimitiveColumn(ht.tfloat64, v)
+                             for n, v in cols_np.items()}}
+    vd = MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), Batch(v_cols, N), ['locus', 'alleles'], ['s'],
+        ht.tstruct(locus=ht.tlocus(rg), alleles=ht.tarray(ht.tstr)),
+        ht.tstruct(s=ht.tstr, **{n: ht.tfloat64 for n in cols_np}),
+        ht.tstruct(LGT=ht.tcall, LA=ht.tarray(ht.tint32),
+                   LAD=ht.tarray(ht.tint32), DP=ht.tint32, GQ=ht.tint32),
+        vmbs))
+    rd = MatrixTable(MatrixStage.from_batches(
+        Batch({}, 1), Batch({'s': s_col}, N), ['locus'], ['s'],
+        ht.tstruct(locus=ht.tlocus(rg)), ht.tstruct(s=ht.tstr),
+        ht.tstruct(END=ht.tint32, DP=ht.tint32, GQ=ht.tint32), rmbs))
+    truth = dict(j=j, k=k, var=var, homref=homref, uncovered=uncovered,
+                 dp=dp, gq=gq, la=la, width=width, lad=lad, n_all=n_all,
+                 alleles=alleles, v_dp=v_dp, v_gq=v_gq, start=start,
+                 length=np.where(start, r_end - pos[:, None] + 1, 0),
+                 r_dp=r_dp, r_gq=r_gq, cols_np=cols_np)
+    return hl.vds.VariantDataset(rd, vd), truth
+
+
+def vds_sample_qc_oracle(table, t, gq_bins=(0, 20, 60),
+                         dp_bins=(0, 1, 10, 20, 30)):
+    """hl.vds.sample_qc's counters of every sample against numpy on the
+    truth: calls from the variant entries, allele types from each site's
+    alleles, singletons from the allele counts over the variant entries,
+    the GQ and DP bins over the variant entries (one each) and the
+    reference blocks (their length in bases each)."""
+    j, k, var = t['j'], t['k'], t['var']
+    N = j.shape[1]
+    ti = np.asarray([[a[1] == 'G', len(a) == 3 and a[2] == 'G']
+                     for a in t['alleles']])
+    want = dict(n_het=(var & (j != k)).sum(axis=0),
+                n_hom_var=(var & (j == k) & (j > 0)).sum(axis=0))
+    want['n_non_ref'] = want['n_het'] + want['n_hom_var']
+    n_ti, n_tv, sing_ti, sing_tv = (np.zeros(N, np.int64) for _ in range(4))
+    for g in (1, 2):
+        ac = np.where(var, (j == g).astype(np.int64) + (k == g), 0).sum(axis=1)
+        g_ti = ti[:, g - 1][:, None]
+        for a in (j, k):
+            carried = var & (a == g)
+            n_ti += (carried & g_ti).sum(axis=0)
+            n_tv += (carried & ~g_ti).sum(axis=0)
+            single = carried & (ac == 1)[:, None]
+            sing_ti += (single & g_ti).sum(axis=0)
+            sing_tv += (single & ~g_ti).sum(axis=0)
+    zero = np.zeros(N, np.int64)
+    want.update(n_singleton=sing_ti + sing_tv, n_singleton_ti=sing_ti,
+                n_singleton_tv=sing_tv, n_snp=n_ti + n_tv, n_transition=n_ti,
+                n_transversion=n_tv, n_insertion=zero, n_deletion=zero,
+                n_star=zero)
+    for name, bins, v, r in (('gq', gq_bins, t['v_gq'], t['r_gq']),
+                             ('dp', dp_bins, t['v_dp'], t['r_dp'])):
+        want[f'bases_over_{name}_threshold'] = np.stack(
+            [(var & (v >= b)).sum(axis=0)
+             + np.where(t['start'] & (r >= b), t['length'], 0).sum(axis=0)
+             for b in bins], axis=1)
+    rows = {_sample_index(r.s): r for r in table.collect()}
+    if len(rows) != N:
+        raise AssertionError(f'vds.sample_qc: {len(rows)} rows for {N} samples')
+    for name, w in want.items():
+        got = [tuple(rows[i][name]) if w.ndim == 2 else rows[i][name]
+               for i in range(N)]
+        _eq(got, w, f'vds.sample_qc {name}')
+    for name, (a, b) in (('r_ti_tv', (n_ti, n_tv)),
+                         ('r_ti_tv_singleton', (sing_ti, sing_tv)),
+                         ('r_het_hom_var', (want['n_het'], want['n_hom_var']))):
+        ratio = [x / y if y else None for x, y in zip(a.tolist(), b.tolist())]
+        if [rows[i][name] for i in range(N)] != ratio:
+            raise AssertionError(f'vds.sample_qc {name}: differs from numpy')
+
+
+def vds_split_truth(t):
+    """The truth after split_multi: one row per alternate allele a of each
+    site, calls downcoded to a (j <= k in {0, 1}), AD [Σ LAD - LAD at a,
+    LAD at a] where the sample's LA holds a, else [Σ LAD, 0]. Returns the
+    split rows' site, a, j, k and AD."""
+    site = np.repeat(np.arange(t['n_all'].size), t['n_all'] - 1)
+    a = np.concatenate([np.arange(1, n) for n in t['n_all']])
+    j, k = t['j'][site], t['k'][site]
+    sj = (j == a[:, None]).astype(np.int8)
+    sk = (k == a[:, None]).astype(np.int8)
+    sj, sk = np.minimum(sj, sk), np.maximum(sj, sk)
+    la, lad = t['la'][site], t['lad'][site]
+    inside = np.arange(3) < t['width'][site][..., None]
+    hit = (la == a[:, None, None]) & inside
+    hit[..., 0] = False
+    nra = np.where(hit, lad, 0).sum(axis=2)
+    tot = np.where(inside, lad, 0).sum(axis=2)
+    return dict(site=site, a=a, j=sj, k=sk, ad=np.stack([tot - nra, nra], 2))
+
+
+def vds_dense_check(mb, t, st):
+    """The dense MatrixTable's one batch against the truth: its rows are the
+    split rows in order; GT is each variant call downcoded, hom-ref where a
+    reference block covers the site, and filtered where nothing does; DP and
+    GQ come from the variant entry or the covering block; AD from LAD on
+    variant entries, missing elsewhere. Returns the uncovered mask."""
+    from hail_tpu_torch.genetics.call import calls_allele_j, calls_allele_k
+    site = st['site']
+    pos = np.asarray(mb.rows.columns['locus'].position)
+    if not np.array_equal(pos, 100_000 + VDS_SPACING * site):
+        raise AssertionError('to_dense_mt: the rows are not the split sites')
+    got_al = mb.rows.columns['alleles'].to_pylist()
+    if got_al != [['A', t['alleles'][s][a]] for s, a in zip(site, st['a'])]:
+        raise AssertionError('to_dense_mt: the split alleles differ')
+    unc = t['uncovered'][site]
+    _eq(mb.entry_filtered_mask(), unc, 'to_dense_mt: filtered entries')
+    gt = mb.entries['GT']
+    _eq(gt.missing_mask(), unc, 'to_dense_mt: GT missing')
+    packed, ok = np.asarray(gt.values), ~unc
+    _eq(calls_allele_j(packed)[ok], st['j'][ok], 'to_dense_mt: GT j')
+    _eq(calls_allele_k(packed)[ok], st['k'][ok], 'to_dense_mt: GT k')
+    for f in ('DP', 'GQ'):
+        col = mb.entries[f]
+        _eq(col.missing_mask(), unc, f'to_dense_mt: {f} missing')
+        _eq(np.asarray(col.values)[ok], t[f.lower()][site][ok],
+            f'to_dense_mt: {f}')
+    ad, var = mb.entries['AD'], t['var'][site]
+    _eq(ad.missing_mask(), ~var, 'to_dense_mt: AD missing')
+    _eq(np.asarray(ad.values)[var][:, :2], st['ad'][var], 'to_dense_mt: AD')
+    return unc
+
+
+def plant_mendel_errors(rng, nalt, miss, trios, n_plant):
+    """Calls with `n_plant` Mendel errors planted in `trios` (kid, dad, mom
+    column indices, kids that are no one's parent), each where the child and
+    both parents are called: a hom-var child of hom-ref parents (code 5), a
+    hom-ref child of hom-var parents (code 8) and a het child of hom-ref
+    parents (code 2), in turn. Returns (the planted n_alt, [(row, trio,
+    code)])."""
+    kid, dad, mom = (np.asarray(x) for x in zip(*trios))
+    ok = ~(miss[:, kid] | miss[:, dad] | miss[:, mom])
+    kinds = [(5, 0, 2), (8, 2, 0), (2, 0, 1)]    # code, parents, child
+    cands = {par: ok & (nalt[:, dad] == par) & (nalt[:, mom] == par)
+             for par in (0, 2)}
+    out = nalt.copy()
+    planted, used = [], set()
+    for n in range(n_plant):
+        code, par, child = kinds[n % 3]
+        cand = cands[par]
+        while True:
+            r = int(rng.integers(0, nalt.shape[0]))
+            tis = np.flatnonzero(cand[r])
+            if tis.size:
+                ti = int(rng.choice(tis))
+                if (r, ti) not in used:
+                    break
+        used.add((r, ti))
+        out[r, kid[ti]] = child
+        planted.append((r, ti, code))
+    return out, planted
+
+
+def tdt_oracle(nalt, miss, kid, dad, mom):
+    """t and u per row over complete trios of called entries on autosomes:
+    a het parent beside a hom parent transmitted the child's alternate
+    alleles less the hom parent's; two het parents transmitted the child's
+    n_alt of 2."""
+    k, d, m = nalt[:, kid], nalt[:, dad], nalt[:, mom]
+    ok = ~(miss[:, kid] | miss[:, dad] | miss[:, mom])
+    dh, mh = ok & (d == 1), ok & (m == 1)
+    one = dh ^ mh
+    tr = np.where(dh, k - m // 2, k - d // 2)
+    t = np.where(one, tr, 0) + np.where(dh & mh, k, 0)
+    u = np.where(one, 1 - tr, 0) + np.where(dh & mh, 2 - k, 0)
+    return t.sum(axis=1), u.sum(axis=1)
+
+
+def phase_family(hl, sim, rng):
+    """hl.mendel_errors and hl.transmission_disequilibrium_test on the first
+    FAM_VARIANTS rows of simulate_random_mating's output (phase_mating):
+    the Pedigree from the columns' parents, FAM_PLANTED Mendel errors
+    planted in children of the last round, every count held to numpy."""
+    from hail_tpu_torch import types as ht
+    from hail_tpu_torch.genetics.call import calls_n_alt_alleles, pack_diploid
+    from hail_tpu_torch.ir.columns import PrimitiveColumn
+    from hail_tpu_torch.matrixtable import MatrixBatch, MatrixStage, MatrixTable
+    from hail_tpu_torch.matrixtable import _concat_matrix_batches
+    out = {}
+    st = sim._stage
+    mb = _concat_matrix_batches(st.collect_batches(), st)
+    mb = mb.filter_rows(np.arange(mb.n_rows) < FAM_VARIANTS)
+    cols = st.cols.to_pylist()
+    names = [c.s for c in cols]
+    trios = [(i, c.father, c.mother) for i, c in enumerate(cols)
+             if c.mother is not None]
+    parents = {x for _, d, m in trios for x in (d, m)}
+    leaves = [tr for tr in trios if tr[0] not in parents]
+    ped = hl.Pedigree([hl.Trio(names[i], fam_id=f'f{i}', pat_id=names[d],
+                               mat_id=names[m]) for i, d, m in trios])
+    packed = np.asarray(mb.entries['GT'].values)
+    miss = mb.entries['GT'].missing_mask()
+    nalt = calls_n_alt_alleles(packed)
+    planted_nalt, planted = plant_mendel_errors(rng, nalt, miss, leaves,
+                                                FAM_PLANTED)
+    calls = pack_diploid((planted_nalt == 2).astype(np.int32),
+                         (planted_nalt >= 1).astype(np.int32))
+
+    def mt_of(gt):
+        return MatrixTable(MatrixStage.from_batches(
+            st.globals, st.cols, st.row_key, st.col_key, st.row_type,
+            st.col_type, st.entry_type,
+            [MatrixBatch(mb.rows, {'GT': PrimitiveColumn(ht.tcall, gt, miss)})]))
+    sim, pmt = mt_of(packed), mt_of(calls)
+
+    t0 = time.perf_counter()
+    men, fam, ind, var = hl.mendel_errors(pmt.GT, ped)
+    men_rows, fam_rows = men.collect(), fam.collect()
+    ind_rows, var_rows = ind.collect(), var.collect()
+    out['mendel_errors_s'] = time.perf_counter() - t0
+    row_of = {int(p): i for i, p in
+              enumerate(np.asarray(mb.rows.columns['locus'].position))}
+    col_of = {s: i for i, s in enumerate(names)}
+    got = {(row_of[r.locus.position], col_of[r.s], r.mendel_code)
+           for r in men_rows}
+    want = {(r, leaves[ti][0], code) for r, ti, code in planted}
+    if got != want or len(men_rows) != FAM_PLANTED:
+        raise AssertionError(f'mendel_errors: {len(men_rows)} errors found, '
+                             f'{len(got ^ want)} differ from the planted')
+    fam_want = {names[i]: 0 for i, _, _ in trios}
+    ind_want = {names[x]: 0 for tr in trios for x in tr}
+    per_var = np.zeros(packed.shape[0], np.int64)
+    for r, ti, code in planted:
+        i, d, m = leaves[ti]
+        fam_want[names[i]] += 1
+        ind_want[names[i]] += 1
+        ind_want[names[d]] += code in (1, 2, 3, 6, 11, 12)
+        ind_want[names[m]] += code in (1, 2, 4, 7, 9, 10)
+        per_var[r] += 1
+    fam_got = {r.fam_id[1:]: r for r in fam_rows}
+    if ({names[int(f)]: r.errors for f, r in fam_got.items()} != fam_want
+            or any(r.snp_errors != r.errors or r.children != 1
+                   for r in fam_rows)):
+        raise AssertionError('mendel_errors: per-family counts differ')
+    if {r.s: r.errors for r in ind_rows} != ind_want:
+        raise AssertionError('mendel_errors: per-sample counts differ')
+    if [r.errors for r in var_rows] != per_var.tolist():
+        raise AssertionError('mendel_errors: per-variant counts differ')
+
+    t0 = time.perf_counter()
+    tdt = hl.transmission_disequilibrium_test(sim, ped).collect()
+    out['tdt_s'] = time.perf_counter() - t0
+    kid, dad, mom = (np.asarray(x) for x in zip(*trios))
+    t_want, u_want = tdt_oracle(nalt, miss, kid, dad, mom)
+    _eq([r.t for r in tdt], t_want, 'transmission_disequilibrium_test t')
+    _eq([r.u for r in tdt], u_want, 'transmission_disequilibrium_test u')
+    log(f'family methods on simulate_random_mating\'s {packed.shape[0]} x '
+        f'{len(cols)} ({len(trios)} trios): mendel_errors '
+        f'{out["mendel_errors_s"]:.3f} s found the {FAM_PLANTED} planted '
+        f'errors and no other; per-family, per-sample and per-variant counts '
+        f'equal numpy; transmission_disequilibrium_test {out["tdt_s"]:.3f} s, '
+        f't and u of every variant equal numpy ({int(t_want.sum())} '
+        f'transmitted, {int(u_want.sum())} untransmitted)')
+    return out
+
+
+def phase_vds(hl, dev, rng, sim):
+    """The VariantDataset from files to a dense MatrixTable (VDS_SAMPLES x
+    VDS_SITES in VDS_PARTS partitions, the combiner's schema): write and
+    read_vds, validate, vds.sample_qc, lgt_to_gt, split_multi and
+    to_dense_mt, then variant_qc (K5) and linear_regression_rows (K4 cold,
+    K3) on the dense MatrixTable, each held to numpy; then the family
+    methods on `sim`. Returns (figures, the kernels' launches on the VDS
+    path)."""
+    import os
+    import tempfile
+    from hail_tpu_torch.genetics.call import calls_allele_j, calls_allele_k
+    from hail_tpu_torch.ops import _kernels, entry_agg as ea, qc
+    pin_mesh([dev])
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    vds, t = build_vds(hl, rng, VDS_SAMPLES, VDS_SITES, VDS_PARTS)
+    out['build_s'] = time.perf_counter() - t0
+    log(f'VDS {VDS_SITES} sites x {VDS_SAMPLES} samples in {VDS_PARTS} '
+        f'partitions built in {out["build_s"]:.2f} s: '
+        f'{int(t["var"].sum())} variant entries, {int(t["start"].sum())} '
+        f'reference blocks, {int((t["n_all"] == 3).sum())} tri-allelic sites')
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'cohort.vds')
+        t0 = time.perf_counter()
+        vds.write(path)
+        out['write_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vds = hl.vds.read_vds(path)
+        out['read_s'] = time.perf_counter() - t0
+        with Spy(ea, 'run_device_entry_agg') as spy:
+            t0 = time.perf_counter()
+            vds.validate()
+            out['validate_s'] = time.perf_counter() - t0
+        out['validate_device_tier_partitions'] = spy.count()
+        log(f'VDS write {out["write_s"]:.3f} s, read_vds {out["read_s"]:.3f} '
+            f's, validate {out["validate_s"]:.3f} s (its aggregate_entries '
+            f'ran on the device tier in {spy.count()} partitions'
+            + ('' if spy.count() else ': agg.take has no device plan, so the '
+               'host evaluator ran it') + ')')
+
+        t0 = time.perf_counter()
+        sq = hl.vds.sample_qc(vds)
+        out['sample_qc_s'] = time.perf_counter() - t0
+        vds_sample_qc_oracle(sq, t)
+        log(f'vds.sample_qc: {out["sample_qc_s"]:.3f} s; every counter of all '
+            f'{VDS_SAMPLES} samples (calls, allele types, singletons, GQ and '
+            f'DP bins over variant entries and reference blocks) equals numpy')
+
+        # lgt_to_gt over the first partition of the variant data
+        t0 = time.perf_counter()
+        vd = vds.variant_data._filter_partitions([0])
+        g = vd.annotate_entries(GT=hl.vds.lgt_to_gt(vd.LGT, vd.LA))
+        gmb = g._stage.partition_fn(g._stage.contexts[0])
+        out['lgt_to_gt_s'] = time.perf_counter() - t0
+        gp = np.asarray(gmb.entries['GT'].values)
+        gm = gmb.entries['GT'].missing_mask()
+        var = t['var'][:gp.shape[0]]
+        _eq(gm, ~var, 'lgt_to_gt: missing')
+        _eq(calls_allele_j(gp)[var], t['j'][:gp.shape[0]][var], 'lgt_to_gt: j')
+        _eq(calls_allele_k(gp)[var], t['k'][:gp.shape[0]][var], 'lgt_to_gt: k')
+
+        t0 = time.perf_counter()
+        split = hl.vds.split_multi(vds)
+        split.variant_data._stage.collect_batches()
+        out['split_multi_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = hl.vds.to_dense_mt(split)
+        out['to_dense_mt_s'] = time.perf_counter() - t0
+    st = vds_split_truth(t)
+    ctxs = dense._stage.contexts
+    unc = vds_dense_check(dense._stage.partition_fn(ctxs[0]), t, st)
+    n_rows = st['site'].size
+    log(f'lgt_to_gt of the first partition of the variant data: '
+        f'{out["lgt_to_gt_s"]:.3f} s, equal to the global calls; split_multi {out["split_multi_s"]:.3f} s, to_dense_mt '
+        f'{out["to_dense_mt_s"]:.3f} s ({len(ctxs)} batch of {n_rows} rows, '
+        f'{n_rows - VDS_SITES} from splits); GT, DP, GQ and AD of every entry '
+        f'equal the truth, its {int(unc.sum())} uncovered entries filtered')
+
+    _kernels.reset_launch_counts()
+    with Spy(qc, 'run_variant_qc_block') as dev_spy:
+        t0 = time.perf_counter()
+        vq = hl.variant_qc(dense)
+        q = _qc_struct(vq._stage.partition_fn(vq._stage.contexts[0]).rows,
+                       'variant_qc')
+        out['variant_qc_s'] = time.perf_counter() - t0
+    out['variant_qc_device_part_s'] = dev_spy.total()
+    n_vds = dict(_kernels.launches)
+    if n_vds['hail_variant_qc'] != len(ctxs):
+        raise AssertionError(f'variant_qc on the dense MatrixTable launched '
+                             f'K5 {n_vds["hail_variant_qc"]} times')
+    site = st['site']
+    variant_qc_oracle(q, dict(j=st['j'], k=st['k'], gt_m=unc,
+                              dp=t['dp'][site], dp_m=unc, gq=t['gq'][site],
+                              gq_m=unc, n_all=np.full(n_rows, 2)))
+    log(f'variant_qc on the dense MatrixTable: {out["variant_qc_s"]:.3f} s '
+        f'(run_variant_qc_block {out["variant_qc_device_part_s"]:.3f} s; '
+        f'{n_vds["hail_variant_qc"]} K5 launch); every counter of all '
+        f'{n_rows} rows equals numpy')
+
+    covs = [1.0] + [getattr(dense, f'c{i}') for i in range(K - 1)]
+    for key in ('gwas_cold_s', 'gwas_warm_s'):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = hl.linear_regression_rows(y=dense.pheno,
+                                        x=dense.GT.n_alt_alleles(),
+                                        covariates=covs)
+        b = [res._stage.partition_fn(c) for c in res._stage.contexts]
+        out[key] = time.perf_counter() - t0
+        calls = dict(_kernels.launches)
+        if key == 'gwas_cold_s' and not calls['hail_unpack_gt_2bit']:
+            raise AssertionError('the cold GWAS on the dense MatrixTable did '
+                                 'not launch K4')
+        if not calls['hail_linreg_exact_pass']:
+            raise AssertionError(f'the GWAS on the dense MatrixTable did not '
+                                 f'launch K3 ({key})')
+        for name, v in calls.items():
+            n_vds[name] += v
+    got = np.stack([np.concatenate([np.asarray(x.columns[f].values, np.float64)
+                                    for x in b])
+                    for f in ('beta', 'standard_error', 't_stat')], axis=1)
+    if got.shape[0] != n_rows:
+        raise AssertionError(f'GWAS on the dense MatrixTable: {got.shape[0]} '
+                             f'rows')
+    want = numpy_ols((st['j'] + st['k'])[:CHECK_ROWS].astype(np.int32),
+                     unc[:CHECK_ROWS], t['cols_np'])
+    np.testing.assert_allclose(got[:CHECK_ROWS], want, rtol=1e-10,
+                               err_msg='GWAS on the dense MatrixTable vs '
+                                       'numpy f64 OLS')
+    log(f'linear_regression_rows on the dense MatrixTable ({n_rows} rows): '
+        f'cold {out["gwas_cold_s"]:.3f} s, warm {out["gwas_warm_s"]:.3f} s; '
+        f'beta/se/t of {CHECK_ROWS} rows match numpy f64 OLS at rtol 1e-10; '
+        f'launches: K4 {n_vds["hail_unpack_gt_2bit"]}, K3 '
+        f'{n_vds["hail_linreg_exact_pass"]}')
+    del dense, vq, res, vds, split
+    out['family'] = phase_family(hl, sim, rng)
+    out['phase_s'] = time.perf_counter() - t_phase
+    log(f'VDS and family methods: the phase took {out["phase_s"]:.1f} s')
+    return out, n_vds
+
+
 def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         ibd_samples=IBD_SAMPLES, ibd_variants=IBD_VARIANTS):
     import hail_tpu_torch as hl
@@ -3084,12 +3628,16 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     records.append(k5)
     device_ops.append(agg_op)
     # the rest of statgen: the LMM, SKAT, ld_score, simulate_random_mating
-    rest, rest_ops = phase_statgen_rest(hl, dev, rng)
+    rest, rest_ops, sim = phase_statgen_rest(hl, dev, rng)
     device_ops += rest_ops
     # distribution: the sharded BlockMatrix, the device sort, the dry run
     # and the multihost backend
     dist, dist_ops = phase_distribution(hl, dev, rng)
     device_ops += dist_ops
+    # the VariantDataset to a dense MatrixTable, then variant_qc (K5) and
+    # the GWAS (K4, K3) on it; mendel_errors and the TDT on `sim`
+    vds, n_vds = phase_vds(hl, dev, rng, sim)
+    del sim
     per_call['hail_linreg_i8_sums'] = n_f32['hail_linreg_i8_sums']
     per_call['hail_ibs_counts'] = n_ibd['hail_ibs_counts']
     per_call['hail_variant_qc'] = n_qc['hail_variant_qc']
@@ -3101,7 +3649,7 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
     for rec in records:
         c_name = names[rec['name']]
         rec['launches'] = sum(n[c_name] for n in (n_gwas, n_f32, n_glm, n_ld,
-                                                  n_ibd, n_qc))
+                                                  n_ibd, n_qc, n_vds))
         rec['launches_per_call'] = per_call[c_name]
         if not rec['launches']:
             raise AssertionError(f'the main path never launched {rec["name"]}')
@@ -3116,7 +3664,7 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
         raise AssertionError(f'modules of the reference were loaded: {loaded}')
     log('imports: no jax and no hail_tpu module loaded')
     return (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
-            qc, rest, dist)
+            qc, rest, dist, vds)
 
 
 def li_pair(dev, nalt, miss):
@@ -3142,7 +3690,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     (records, device_ops, gwas, glm, glm_s, ibd, ld, bm_methods, rel,
-     qc, rest, dist) = run(dev)
+     qc, rest, dist, vds) = run(dev)
     log(f'run: {time.perf_counter() - t0:.1f} s, the kernels\' build included')
     order = ('name', 'route', 'source', 'replaces', 'launches',
              'launches_per_call', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -3152,7 +3700,8 @@ def main() -> int:
                       'ibd_seconds': ibd, 'ld_prune': ld,
                       'blockmatrix_methods': bm_methods,
                       'relatedness': rel, 'qc_seconds': qc,
-                      'statgen_rest': rest, 'distribution': dist}))
+                      'statgen_rest': rest, 'distribution': dist,
+                      'vds': vds}))
     op_order = ('name', 'source', 'replaces', 'shape', 'launches_per_call',
                 'ms', 'bound_ms', 'bound_by', 'bound_unit', 'share_of_bound',
                 'yardstick', 'yardstick_ms')

@@ -117,6 +117,7 @@ from .methods.pca import (_blanczos_pca, _hwe_normalized_blanczos,
                           _pca_and_moments, _spectral_moments)
 from . import linalg
 from . import nd
+from . import vds
 from . import io
 from . import utils
 from .utils.hadoop import (hadoop_open, hadoop_copy, hadoop_exists,

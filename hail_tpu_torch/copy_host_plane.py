@@ -40,6 +40,8 @@ COPIED = [
     'native/__init__.py', 'native/hail_native.cpp',
     'methods/impex.py', 'methods/qc.py', 'nd/__init__.py',
     'experimental', 'resources/datasets.json',
+    'methods/misc.py', 'methods/family_methods.py', 'methods/annotators.py',
+    'vds',
 ]
 
 # `import`/`from` statements and the by-name imports `__import__('…')`,
@@ -178,6 +180,24 @@ _MEMO_SIZE_NEW = '''        c = cols.pop()
         fields = getattr(c, 'fields', None)
 '''
 
+# a fault of the reference's vds.filter_variants: its keys hold the
+# alleles list, so hashing them for the set lookup raised TypeError on any
+# variant data; keys are frozen (table._hashable_key), and a table keyed by
+# locus alone matches on that prefix of the row key
+_FILTER_VARIANTS_OLD = '''    keyset = {tuple(r[k] for k in variants_table._stage.key)
+              for r in variants_table.collect()}
+    vd = vds.variant_data
+    keys = [tuple(r[k] for k in vd._stage.row_key) for r in vd.rows().collect()]
+'''
+_FILTER_VARIANTS_NEW = '''    from ..table import _hashable_key
+    tkey = list(variants_table._stage.key)
+    keyset = {_hashable_key(tuple(r[k] for k in tkey))
+              for r in variants_table.collect()}
+    vd = vds.variant_data
+    keys = [_hashable_key(tuple(r[k] for k in vd._stage.row_key[:len(tkey)]))
+            for r in vd.rows().collect()]
+'''
+
 # (file, anchor, replacement): each anchor must occur exactly once
 EDITS = [
     ('backend/backend.py', _CACHE_FLAG_OLD, _CACHE_FLAG_NEW),
@@ -188,6 +208,7 @@ EDITS = [
     ('io/native.py', _PICKLE_DUMP_OLD, _PICKLE_DUMP_NEW),
     ('io/native.py', _PICKLE_LOAD_OLD, _PICKLE_LOAD_NEW),
     ('experimental/__init__.py', _LD_SCORE_OLD, _LD_SCORE_NEW),
+    ('vds/__init__.py', _FILTER_VARIANTS_OLD, _FILTER_VARIANTS_NEW),
 ]
 
 

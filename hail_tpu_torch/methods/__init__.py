@@ -13,6 +13,12 @@ from .statgen import (linear_regression_rows, logistic_regression_rows,
 from .pca import (pca, hwe_normalized_pca, _blanczos_pca, _spectral_moments,
                   _hwe_normalized_blanczos, _pca_and_moments)
 from .relatedness import identity_by_descent, king, pc_relate, maximal_independent_set
+from .family_methods import (trio_matrix, mendel_errors, de_novo,
+                             transmission_disequilibrium_test)
+from .misc import (rename_duplicates, filter_intervals, segment_intervals,
+                   compute_charr, concordance, require_biallelic,
+                   require_row_key_variant)
+from .annotators import vep, nirvana
 from .impex import (import_vcf, export_vcf, import_plink, export_plink,
                     import_bgen, export_bgen, index_bgen, import_gen, export_gen,
                     import_table, export_table, import_lines, import_fam,
@@ -30,6 +36,10 @@ __all__ = ['sample_qc', 'variant_qc', 'linear_regression_rows',
            'linear_mixed_model', 'linear_mixed_regression_rows',
            'pca', 'hwe_normalized_pca',
            'identity_by_descent', 'king', 'pc_relate', 'maximal_independent_set',
+           'trio_matrix', 'mendel_errors', 'de_novo',
+           'transmission_disequilibrium_test', 'rename_duplicates',
+           'filter_intervals', 'segment_intervals', 'compute_charr',
+           'concordance', 'vep', 'nirvana',
            'import_vcf', 'export_vcf', 'import_plink', 'export_plink',
            'import_bgen', 'export_bgen', 'index_bgen', 'import_gen',
            'export_gen', 'import_table', 'export_table', 'import_lines',

@@ -16,7 +16,11 @@ def test_copies_are_reproduced(tmp_path):
     for rel in ('methods/qc.py', 'matrixtable.py', 'stats/__init__.py',
                 'experimental/__init__.py', 'experimental/extras.py',
                 'experimental/datasets.py', 'experimental/ldscsim.py',
-                'experimental/time.py', 'resources/datasets.json'):
+                'experimental/time.py', 'resources/datasets.json',
+                'methods/misc.py', 'methods/family_methods.py',
+                'methods/annotators.py', 'vds/__init__.py', 'vds/functions.py',
+                'vds/combiner/__init__.py', 'vds/combiner/combine.py',
+                'vds/combiner/variant_dataset_combiner.py'):
         assert rel in copied, rel
     differ = [rel for rel in copied if not filecmp.cmp(
         os.path.join(tmp_path, rel), os.path.join(cp.DST, rel), shallow=False)]
@@ -89,3 +93,31 @@ def test_sort_edits():
     assert text.count('return _multihost_sample_sort(stage, specs, be, '
                       'samples_per_partition)') == 1
     assert text.count('order = device_range_sort(keys, asc)') == 1
+
+
+def test_vds_and_methods_copies():
+    """The VariantDataset package and the three method modules are copied
+    with their imports renamed, the seven lazy `import hail_tpu as hl` of
+    vds/__init__.py among them; `filter_variants` is the one edit of
+    vds/__init__.py, and the method modules are copied unedited."""
+    rels = [rel for rel, _, _ in cp.EDITS]
+    assert rels.count('vds/__init__.py') == 1
+    for rel in ('methods/misc.py', 'methods/family_methods.py',
+                'methods/annotators.py', 'vds/functions.py',
+                'vds/combiner/combine.py',
+                'vds/combiner/variant_dataset_combiner.py'):
+        assert rel not in rels
+        with open(os.path.join(cp.SRC, rel), encoding='utf-8') as f:
+            ref = f.read()
+        with open(os.path.join(cp.DST, rel), encoding='utf-8') as f:
+            assert f.read() == cp._IMPORT_RE.sub(r'\1hail_tpu_torch', ref), rel
+    with open(os.path.join(cp.SRC, 'vds/__init__.py'), encoding='utf-8') as f:
+        ref = f.read()
+    with open(os.path.join(cp.DST, 'vds/__init__.py'), encoding='utf-8') as f:
+        text = f.read()
+    assert ref.count('import hail_tpu as hl') == 7
+    assert text.count('import hail_tpu_torch as hl') == 7
+    assert 'import hail_tpu as' not in text and 'jax' not in text
+    assert text.count(cp._FILTER_VARIANTS_NEW) == 1
+    assert text == cp._IMPORT_RE.sub(r'\1hail_tpu_torch', ref).replace(
+        cp._FILTER_VARIANTS_OLD, cp._FILTER_VARIANTS_NEW)

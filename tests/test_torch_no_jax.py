@@ -1,7 +1,9 @@
 """hail_tpu_torch imports and runs with jax blocked, and loads nothing of
 hail_tpu: its methods (QC, `summarize_variants`, the device tier of
 `aggregate_entries`, a linear mixed model with its regression rows, SKAT,
-`hl.experimental.ld_score` and `simulate_random_mating` among them), every
+`hl.experimental.ld_score` and `simulate_random_mating` among them; the
+family methods on its output, `filter_intervals`, and a VariantDataset
+written, read, validated, split and densified), every
 module of the file I/O, PCA and relatedness (imported; the C++ helpers of
 `native` are not built here), and distribution on a mesh of four CPU slots:
 `parallel.mesh`, `parallel.dryrun` (run), `ops.device_sort` (through
@@ -76,6 +78,29 @@ ld = hl.experimental.ld_score(mt.GT.n_alt_alleles(), mt.locus, radius=5)
 assert all(r.ld_score > 0.5 for r in ld.collect())
 sim = hl.simulate_random_mating(mt, n_rounds=2)
 assert sim.count() == (30, 160)
+for name in ('vds', 'vds.combiner', 'vds.functions', 'methods.misc',
+             'methods.family_methods', 'methods.annotators'):
+    importlib.import_module('hail_tpu_torch.' + name)
+cols = sorted(sim.add_col_index().cols().collect(), key=lambda c: c.col_idx)
+ped = hl.Pedigree([hl.Trio(c.s, fam_id=c.s, pat_id=cols[c.father].s,
+                           mat_id=cols[c.mother].s)
+                   for c in cols if c.mother is not None])
+men = hl.mendel_errors(sim.GT, ped)[0]
+assert men.count() == 0
+assert len(hl.transmission_disequilibrium_test(sim, ped).collect()) == 30
+assert hl.filter_intervals(mt, [hl.parse_locus_interval('1:1-10')]).count_rows() \
+    == 9
+with tempfile.TemporaryDirectory() as d:
+    ms = mt.key_cols_by(s=hl.str(mt.sample_idx)).select_cols()
+    rd = ms.select_entries(END=ms.locus.position, DP=10).key_rows_by(
+        'locus').select_rows()
+    vd = ms.select_entries(LGT=ms.GT, LA=hl.literal([0, 1]))
+    v = hl.vds.VariantDataset(rd, vd)
+    v.write(d + '/v.vds')
+    v = hl.vds.read_vds(d + '/v.vds').validate()
+    dense = hl.vds.to_dense_mt(hl.vds.split_multi(v))
+    assert dense.count() == (30, 40)
+    assert hl.vds.sample_qc(v).count() == 40
 import torch
 from hail_tpu_torch.parallel import mesh
 from hail_tpu_torch.parallel.dryrun import dryrun_multichip
