@@ -556,6 +556,7 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
         'hail_tpu/ops/linreg_i8.py:246', err3, ms, plain_ms,
         bound(2 * R * n + n * C + 4 * (2 * R * C + 3 * R),
               2 * (2 * C + 3) * R * n), lib_ms))
+    records.append(phase_k7(dev))
 
     # K1 on that partition as int8 G (-1 = missing) against W = [Q | Ys]
     # in f32 (KP = 5)
@@ -631,6 +632,82 @@ def phase_kernels(dev, mt_parts, cols_np, ibd_ind):
         err2, ms, plain_ms,
         bound(mv * ns + 3 * 4 * ns * ns, n_ops, B1_OPS_PER_S, 'b1_mma')))
     return records
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean host milliseconds of `fn` over `reps` calls after one, each
+    ended by a synchronize: for host work and for routes that fetch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_k7(dev):
+    """K7 (`linreg_i8.digit_operand`) at the cells' widths, 361,194 x 42
+    (k = 26, P = 16) and 2,504 x 6: bit-equal to `exact_operand` of the
+    host's `_digit_planes` and to the plain version on the card; its two
+    launches timed with the bases fixed (`kernel ms`), the plain version,
+    the host's `_digit_planes` (the yardstick it replaced), and the whole
+    route from host arrays (copy, both launches, the fetch of the maxima).
+    The record is the wider shape's; the narrower's figures ride along."""
+    from hail_tpu_torch.ops import linreg_i8 as li
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    for tag, (N, k, P) in (('kg', (2_504, 5, 1)), ('ukb', (361_194, 26, 16))):
+        Q, Ys = rng.normal(size=(N, k)), rng.normal(size=(N, P))
+        Ys[:, 0] *= 1e-3                         # columns of other scales
+        Qd, Ysd = (torch.from_numpy(a).to(dev) for a in (Q, Ys))
+        W, scales = li.digit_operand(Qd, Ysd)
+        Wd_h, sc_h = li._digit_planes(np.concatenate([Q, Ys], axis=1))
+        want = li.exact_operand(torch.from_numpy(Wd_h).to(dev))
+        Wd_p, _ = li._digit_planes_plain(Qd, Ysd)
+        torch.cuda.synchronize()
+        if not (torch.equal(W.Wdig, want.Wdig) and torch.equal(W.WT, want.WT)
+                and torch.equal(W.Wdig, Wd_p) and np.array_equal(scales, sc_h)):
+            raise AssertionError(f'K7 at {N} x {k + P}: differs from the '
+                                 f'host planes')
+        base = torch.from_numpy(li._column_base(
+            np.abs(np.concatenate([Q, Ys], axis=1)).max(axis=0))).to(dev)
+
+        def kernel():
+            li._digit_amax(Qd, Ysd)
+            li._digit_launch(Qd, Ysd, base)
+
+        def plain():
+            li.exact_operand(li._digit_planes_plain(Qd, Ysd)[0])
+        ms, plain_ms = compare_times(kernel, plain)
+        amax_ms = timed_ms(lambda: li._digit_amax(Qd, Ysd))
+        yard_ms = host_ms(lambda: li._digit_planes(
+            np.concatenate([Q, Ys], axis=1)))
+        route_ms = host_ms(lambda: li.digit_operand(
+            *(torch.from_numpy(a).to(dev) for a in (Q, Ys))))
+        # bytes: W read once, WT and Wdig written once (the kernel reads W
+        # twice: once for the maxima, once for the digits)
+        C, (Cp, ldw) = W.Wdig.shape[1], W.WT.shape
+        w_bytes = 8 * N * (k + P)
+        out[tag] = dict(N=N, KP=k + P, ms=ms, amax_ms=amax_ms,
+                        plain_ms=plain_ms, host_ms=yard_ms, route_ms=route_ms,
+                        bnd=bound(w_bytes + Cp * ldw + N * C),
+                        two_pass_bound_ms=bound(2 * w_bytes + Cp * ldw
+                                                + N * C)['bound_ms'])
+        log(f'K7 digit_operand {N} x {k + P}: bit-equal to the host planes '
+            f'and the plain version; kernel {ms:.4f} ms (maxima {amax_ms:.4f}'
+            f'), plain {plain_ms:.4f} ms, host _digit_planes {yard_ms:.1f} '
+            f'ms, route from host arrays {route_ms:.2f} ms')
+        del Qd, Ysd, W, want, Wd_p
+    u, g = out['ukb'], out['kg']
+    return record(
+        'digit_planes', 'hail_tpu_torch/csrc/digit_planes.cu',
+        'none (hail_tpu/ops/linreg_i8.py:227 _digit_planes is host numpy)',
+        0, u['ms'], u['plain_ms'], u['bnd'], shape=[u['N'], u['KP']],
+        amax_ms=u['amax_ms'], host_ms=u['host_ms'], route_ms=u['route_ms'],
+        two_pass_bound_ms=u['two_pass_bound_ms'], kg_shape=[g['N'], g['KP']],
+        kg_ms=g['ms'], kg_plain_ms=g['plain_ms'], kg_host_ms=g['host_ms'],
+        kg_route_ms=g['route_ms'], kg_bound_ms=g['bnd']['bound_ms'])
 
 
 def f32_sum_oracle(G8, W):
@@ -743,9 +820,13 @@ def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
         f'cold {cold:.1f} v/s, warm {warm[0]:.1f} and {warm[1]:.1f} v/s, '
         f'host-materialized {host:.1f} v/s; beta/se/t of {CHECK_ROWS} rows '
         f'match numpy f64 OLS at rtol 1e-10; devcache {devcache.stats()}')
+    # K7: a pair of launches in the cold call, none in a warm one (its
+    # constants hit the cache: the phenotype does not change)
     per_call = {'hail_unpack_gt_2bit': cold_launches['hail_unpack_gt_2bit'],
                 'hail_linreg_exact_pass':
-                    warm_launches['hail_linreg_exact_pass']}
+                    warm_launches['hail_linreg_exact_pass'],
+                'hail_digit_amax': cold_launches['hail_digit_amax'],
+                'hail_digit_planes': cold_launches['hail_digit_planes']}
     launches = dict(_kernels.launches)
     return (dict(cold=cold, warm=warm, host_materialized=host,
                  cold_split=cold_split(run_count, n_variants)),
@@ -4279,14 +4360,17 @@ def run(dev, n_samples=N_SAMPLES, block_r=BLOCK_R, n_parts=N_PARTS,
              'linreg_i8_sums': 'hail_linreg_i8_sums',
              'ibs_counts': 'hail_ibs_counts',
              'variant_qc': 'hail_variant_qc',
-             'decode_packed_gt': 'hail_decode_packed_gt'}
+             'decode_packed_gt': 'hail_decode_packed_gt',
+             'digit_planes': ('hail_digit_amax', 'hail_digit_planes')}
     for rec in records:
-        c_name = names[rec['name']]
-        rec['launches'] = sum(n[c_name] for n in (n_gwas, n_f32, n_packed,
-                                                  n_dropin, n_glm, n_ld,
-                                                  n_ibd, n_qc, n_vds, n_batch,
-                                                  n_qob))
-        rec['launches_per_call'] = per_call[c_name]
+        c_names = names[rec['name']]
+        if isinstance(c_names, str):
+            c_names = (c_names,)
+        rec['launches'] = sum(n[c] for c in c_names
+                              for n in (n_gwas, n_f32, n_packed, n_dropin,
+                                        n_glm, n_ld, n_ibd, n_qc, n_vds,
+                                        n_batch, n_qob))
+        rec['launches_per_call'] = sum(per_call[c] for c in c_names)
         if not rec['launches']:
             raise AssertionError(f'the main path never launched {rec["name"]}')
     log('launches on the method paths: ' + ', '.join(

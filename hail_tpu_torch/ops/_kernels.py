@@ -47,6 +47,8 @@ _SIGNATURES = {
     'hail_variant_qc': [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
                         _P, _P, _P],
     'hail_decode_packed_gt': [_P, _P, _LL, _P, _P, _I, _P],
+    'hail_digit_amax': [_P, _I, _P, _I, _I, _P, _P],
+    'hail_digit_planes': [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 
 launches: Dict[str, int] = {name: 0 for name in _SIGNATURES}

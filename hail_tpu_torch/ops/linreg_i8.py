@@ -17,13 +17,15 @@ Hand-written CUDA kernels carry the device part (csrc/):
   `linreg_block_call` and their host wrappers `linreg_stats_call_exact`,
   `linreg_stats_call`) decode on the device with it;
 - `exact_pass` (K3): GWd, MWd, nmiss, s, ss in one read of (gz8, m8);
+- `digit_operand` (K7): W = [Q | Ys] f64 -> K3's operand, the digit planes
+  of `_digit_planes` bit for bit, made on the device (`exact_consts`);
 - `linreg_i8_sums` (K1): the f32 one-pass sums of `linreg_block_i8`, the
   int8-storage f32-compute OLS (`linreg_stats_i8`), from int8 G with
   -1 = missing.
 Each has its plain torch version beside it (`_unpack_plain`,
-`_decode_plain`, `_exact_pass_plain`, `_sums_ref`). A wrapper runs the
-plain version only for CPU tensors; for CUDA tensors it launches the kernel
-or raises.
+`_decode_plain`, `_exact_pass_plain`, `_digit_planes_plain`, `_sums_ref`).
+A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -45,23 +47,36 @@ _MAX_EXACT_N = 8_000_000   # int32 accumulator: N·2·127 < 2³¹
 _MAX_F32_N = (1 << 22) - 1
 
 
+def _column_base(amax: np.ndarray) -> np.ndarray:
+    """Each column's block exponent from its max |w|: 2^ceil(log2(max)), 1
+    for a zero column, in numpy's own rounding (the device route brings
+    its maxima here, so that both routes take one base)."""
+    amax = np.where(amax == 0, 1.0, amax)
+    return np.exp2(np.ceil(np.log2(amax)))
+
+
+def _plane_scales(base: np.ndarray, planes: int = _EXACT_PLANES,
+                  bits: int = _DIGIT_BITS) -> np.ndarray:
+    """The (planes, KP) f64 scales of the digit planes of columns of `base`."""
+    mult = float(1 << bits)
+    return np.stack([base / (mult ** (d_ + 1)) for d_ in range(planes)],
+                    axis=0)
+
+
 def _digit_planes(W: np.ndarray, planes: int = _EXACT_PLANES,
                   bits: int = _DIGIT_BITS):
     """Decompose f64 W (N, KP) into int8 digit planes stacked plane-major
     along axis 1 → (N, planes·KP), plus (planes, KP) f64 scales."""
     W = np.asarray(W, np.float64)
-    amax = np.max(np.abs(W), axis=0)
-    amax = np.where(amax == 0, 1.0, amax)
-    base = np.exp2(np.ceil(np.log2(amax)))         # per-column block exponent
+    base = _column_base(np.max(np.abs(W), axis=0))
     resid = W / base
     mult = float(1 << bits)
-    digs, scales = [], []
-    for d_ in range(planes):
+    digs = []
+    for _ in range(planes):
         q = np.clip(np.rint(resid * mult), -127, 127)
         digs.append(q.astype(np.int8))
         resid = resid * mult - q
-        scales.append(base / (mult ** (d_ + 1)))
-    return np.concatenate(digs, axis=1), np.stack(scales, axis=0)
+    return np.concatenate(digs, axis=1), _plane_scales(base, planes, bits)
 
 
 def pack_gt_2bit(packed: np.ndarray, missing) -> np.ndarray:
@@ -214,6 +229,78 @@ def exact_operand(Wdig: torch.Tensor) -> ExactOperand:
     return ExactOperand(Wdig, WT)
 
 
+# ---------------------------------------------------------------------------
+# K7: the digit planes on the device
+# ---------------------------------------------------------------------------
+
+def _digit_planes_plain(Q: torch.Tensor, Ys: torch.Tensor):
+    """Plain version of K7: `_digit_planes` of [Q | Ys] in torch, bit-equal
+    (torch.round rounds half to even as np.rint does; the maxima go
+    through `_column_base`). (Wdig (N, C) int8 tensor, scales numpy)."""
+    W = torch.cat([Q, Ys], dim=1)
+    base = _column_base(W.abs().amax(dim=0).cpu().numpy())
+    resid = W / torch.from_numpy(base).to(W.device)
+    mult = float(1 << _DIGIT_BITS)
+    digs = []
+    for _ in range(_EXACT_PLANES):
+        x = resid * mult
+        q = torch.round(x).clamp(-127, 127)
+        digs.append(q.to(torch.int8))
+        resid = x - q
+    return torch.cat(digs, dim=1), _plane_scales(base)
+
+
+def _digit_amax(Q: torch.Tensor, Ys: torch.Tensor) -> torch.Tensor:
+    """K7's first launch: max |w| of each column of [Q | Ys], (KP,) f64 on
+    the device."""
+    amax = torch.zeros(Q.shape[1] + Ys.shape[1], dtype=torch.float64,
+                       device=Q.device)
+    _kernels.launch('hail_digit_amax', Q.data_ptr(), Q.shape[1],
+                    Ys.data_ptr(), Ys.shape[1], Q.shape[0], amax.data_ptr(),
+                    rows=Q.shape[0], cols=amax.shape[0])
+    return amax
+
+
+def _digit_launch(Q: torch.Tensor, Ys: torch.Tensor,
+                  base: torch.Tensor) -> ExactOperand:
+    """K7's second launch: the operand of [Q | Ys] from each column's
+    power of two `base` (KP,) f64 on the device."""
+    N, KP = Q.shape[0], Q.shape[1] + Ys.shape[1]
+    _kernels.check(base, 'digit_planes/base', torch.float64, (KP,))
+    C = _EXACT_PLANES * KP
+    Cp, ldw = (C // 8 + 1) * 8, -(-N // 16) * 16
+    Wdig = torch.empty((N, C), dtype=torch.int8, device=Q.device)
+    WT = torch.empty((Cp, ldw), dtype=torch.int8, device=Q.device)
+    _kernels.launch('hail_digit_planes', Q.data_ptr(), Q.shape[1],
+                    Ys.data_ptr(), Ys.shape[1], N, base.data_ptr(),
+                    Wdig.data_ptr(), WT.data_ptr(), ldw, Cp, rows=N, cols=KP)
+    return ExactOperand(Wdig, WT)
+
+
+def digit_operand(Q: torch.Tensor, Ys: torch.Tensor):
+    """K7: the `ExactOperand` of W = [Q | Ys] (Q (N, k), Ys (N, P) f64 on
+    one device) and its (planes, KP) f64 numpy scales, bit for bit those of
+    `exact_operand(_digit_planes(W))`. On the card two launches with one
+    small fetch between them: the column maxima come to the host, whose
+    numpy makes the bases and scales; nothing per entry leaves the
+    device."""
+    if Q.dim() != 2 or Ys.dim() != 2 or Q.shape[0] != Ys.shape[0]:
+        raise ValueError(f'digit_operand: Q (N, k) and Ys (N, P), got '
+                         f'{tuple(Q.shape)} and {tuple(Ys.shape)}')
+    if Q.shape[0] == 0:
+        raise ValueError('digit_operand: no samples')
+    if Q.device.type == 'cpu':
+        Wdig, scales = _digit_planes_plain(Q, Ys)
+        return exact_operand(Wdig), scales
+    _kernels.check(Q, 'digit_planes/Q', torch.float64)
+    _kernels.check(Ys, 'digit_planes/Ys', torch.float64)
+    if Ys.device != Q.device:
+        raise ValueError(f'digit_operand: Q on {Q.device}, Ys on {Ys.device}')
+    base = _column_base(_digit_amax(Q, Ys).cpu().numpy())
+    W = _digit_launch(Q, Ys, torch.from_numpy(base).to(Q.device))
+    return W, _plane_scales(base)
+
+
 def exact_pass(gz8: torch.Tensor, m8: torch.Tensor, W: ExactOperand):
     """One pass over (gz8, m8) int8 (R, N) against W.Wdig int8 (N, C):
     (GWd, MWd) int32 (R, C) and (nmiss, s, ss) int32 (R,). The kernel reads
@@ -356,15 +443,17 @@ def exact_consts(Q: np.ndarray, Ys: np.ndarray, Qty: np.ndarray,
                  yyp: np.ndarray, dof, device):
     """The device constants of one phenotype group: (W, scales, Qty, yyp,
     dof), W the `ExactOperand` of the digit planes with the kernel's layout
-    built here once, the next three f64 tensors, dof a float."""
+    built here once, the next three f64 tensors, dof a float. Q and Ys go
+    to the device as f64 and K7 makes the planes there (`digit_operand`)."""
     with timer.span('consts.planes'):
-        Wdig, scales = _digit_planes(np.concatenate([Q, Ys], axis=1))
+        W, scales = digit_operand(*(
+            torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(device)
+            for a in (Q, Ys)))
     Qty = np.asarray(Qty, np.float64)
     yyp = np.asarray(yyp, np.float64)
-    with timer.span('consts.copy', bytes=(Wdig.nbytes + scales.nbytes
-                                          + Qty.nbytes + yyp.nbytes)):
-        Wdig = torch.from_numpy(np.ascontiguousarray(Wdig)).to(device)
-        return (exact_operand(Wdig),
+    with timer.span('consts.copy', bytes=(scales.nbytes + Qty.nbytes
+                                          + yyp.nbytes)):
+        return (W,
                 torch.from_numpy(scales).to(device),
                 torch.as_tensor(Qty, device=device),
                 torch.as_tensor(yyp, device=device),

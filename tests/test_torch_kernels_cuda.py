@@ -789,3 +789,191 @@ def test_packed_call_routes_on_the_card_match_cpu(dev):
             assert np.array_equal(np.isnan(a), np.isnan(b)), f
             np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
                                        equal_nan=True, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# K7: the digit planes of the exact linreg's operand
+# ---------------------------------------------------------------------------
+
+# (N, k, P) of each case of `digit_plane_case`; test_torch_linreg_i8.py
+# holds the plain version to the host's and the reference's on the first
+# seven, which are also ragged: N not a multiple of 16, 7·(k + P) not of 8
+DIGIT_PLANE_SHAPES = {
+    'random': (301, 4, 3), 'zero_column': (301, 3, 2),
+    'pow2_max': (160, 2, 3), 'pow2_ulp': (77, 2, 2),
+    'tiny_huge': (250, 3, 4), 'ties': (1003, 1, 4),
+    'wide': (1000, 30, 50), 'kg': (2504, 5, 1), 'ukb': (361194, 26, 16)}
+
+
+def digit_plane_case(name):
+    """(Q, Ys) f64 of one case: `random` normal columns; `zero_column` a
+    column of zeros and one of -0.0; `pow2_max` columns whose max |w| is
+    exactly a power of two (8, -2^-4, and a column of ones); `pow2_ulp`
+    maxima one ulp above 4 and one ulp below 2^-3 (where a log2 that rounds
+    otherwise than numpy's would take another base); `tiny_huge` columns of
+    1e-300 and 1e300, one whose entries underflow to subnormal residuals
+    under a max of 1e300, subnormal entries under a max of 1, a column of
+    subnormals (its base is subnormal, so K7 divides by it: 1 / base is no
+    double) and one whose base overflows to inf (every digit 0); `ties`
+    multiples of 2^-8
+    and 2^-15 under a max of 1 (digits that round half to even); `wide`
+    more than the 64 columns of one K7 block; `kg` and `ukb` the two
+    cells' widths at their sample counts."""
+    N, k, P = DIGIT_PLANE_SHAPES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    Q = rng.normal(size=(N, k))
+    Ys = rng.normal(size=(N, P))
+    if name == 'zero_column':
+        Ys[:, 1] = 0.0
+        Q[:, 2] = -0.0
+    elif name == 'pow2_max':
+        Ys[:, 0] *= 7.5 / np.abs(Ys[:, 0]).max()
+        Ys[17, 0] = 8.0
+        Ys[:, 1] *= 2.0 ** -5 / np.abs(Ys[:, 1]).max()
+        Ys[3, 1] = -2.0 ** -4
+        Q[:, 0] = 1.0
+    elif name == 'pow2_ulp':
+        Ys[:, 0] *= 3.0 / np.abs(Ys[:, 0]).max()
+        Ys[5, 0] = np.nextafter(4.0, np.inf)
+        Ys[:, 1] *= 2.0 ** -4 / np.abs(Ys[:, 1]).max()
+        Ys[9, 1] = -np.nextafter(2.0 ** -3, 0.0)
+    elif name == 'tiny_huge':
+        Q[:, 1] *= 1e-300
+        Ys[:, 0] *= 1e300
+        Ys[:, 1] *= 1e-300
+        Ys[0, 1] = 1e300
+        Ys[:, 2] *= 1e-310
+        Ys[1, 2] = 1.0
+        Ys[:, 3] *= 1e-310                       # a subnormal base: 2^-1027
+        Q[4, 2] = 1.5e308                        # base 2^1024 = inf
+    elif name == 'ties':
+        for j, step in ((0, 2.0 ** -8), (1, 2.0 ** -8), (2, 2.0 ** -15)):
+            Ys[:, j] = rng.integers(-255, 256, N) * step
+            Ys[0, j] = 1.0
+    return Q, Ys
+
+
+def _k7_against_host(dev, Q, Ys):
+    """K7's operand and scales against `exact_operand` of the host's
+    `_digit_planes` and against the plain version on the card, bit for
+    bit; two launches, one of each entry point."""
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    Qd, Ysd = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in (Q, Ys))
+    before = dict(_kernels.launches)
+    W, scales = li.digit_operand(Qd, Ysd)
+    assert {n: _kernels.launches[n] - before[n] for n in before
+            if _kernels.launches[n] != before[n]} == {
+                'hail_digit_amax': 1, 'hail_digit_planes': 1}
+    Wd_h, sc_h = li._digit_planes(np.concatenate([Q, Ys], axis=1))
+    want = li.exact_operand(torch.from_numpy(Wd_h).to(dev))
+    Wd_p, sc_p = li._digit_planes_plain(Qd, Ysd)
+    torch.cuda.synchronize()
+    assert W.Wdig.dtype == W.WT.dtype == torch.int8
+    assert W.Wdig.shape == want.Wdig.shape and W.WT.shape == want.WT.shape
+    assert torch.equal(W.Wdig, want.Wdig)
+    assert torch.equal(W.WT, want.WT)
+    assert torch.equal(W.Wdig, Wd_p)
+    assert np.array_equal(scales, sc_h) and np.array_equal(sc_p, sc_h)
+    assert scales.dtype == np.float64 and scales.shape == (7, Q.shape[1]
+                                                           + Ys.shape[1])
+
+
+@pytest.mark.parametrize('case', list(DIGIT_PLANE_SHAPES))
+def test_digit_planes_match_host(dev, case):
+    _k7_against_host(dev, *digit_plane_case(case))
+
+
+@pytest.mark.parametrize('N,k,P', [(1, 1, 1), (16, 0, 3), (17, 2, 1),
+                                   (63, 64, 0), (65, 64, 1), (129, 100, 28)])
+def test_digit_planes_edge_shapes(dev, N, k, P):
+    """One sample, no covariates, N one past 16 and 64 (the padding of
+    WT's rows and the last block), W exactly one block wide and one
+    column past it, and two tiles of columns."""
+    rng = np.random.default_rng(N + k + P)
+    if P == 0:
+        Q, Ys = rng.normal(size=(N, k - 1)), rng.normal(size=(N, 1))
+    else:
+        Q, Ys = rng.normal(size=(N, k)), rng.normal(size=(N, P))
+    _k7_against_host(dev, Q, Ys)
+
+
+def test_exact_consts_launch_k7_once(dev):
+    """`exact_consts` on the card makes its operand with K7: one launch of
+    each entry point a call, and none from a hit of the constants' cache."""
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    Q, Ys = digit_plane_case('kg')
+    Qty = Q.T @ Ys
+    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+    names = ('hail_digit_amax', 'hail_digit_planes')
+    before = [_kernels.launches[n] for n in names]
+    W, sc, Qtyd, yypd, d = li.exact_consts(Q, Ys, Qty, yyp, 2000, dev)
+    assert [_kernels.launches[n] - b for n, b in zip(names, before)] == [1, 1]
+    Wd_h, sc_h = li._digit_planes(np.concatenate([Q, Ys], axis=1))
+    assert torch.equal(W.WT, li.exact_operand(torch.from_numpy(Wd_h).to(dev)).WT)
+    assert sc.device.type == 'cuda' and torch.equal(sc.cpu(),
+                                                    torch.from_numpy(sc_h))
+    statgen._EXACT_CONSTS_CACHE.clear()
+    a = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 2000, dev)
+    b = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 2000, dev)
+    assert b is a
+    assert [_kernels.launches[n] - b_ for n, b_ in zip(names, before)] == [2, 2]
+
+
+def test_digit_planes_reject_bad_input(dev):
+    from hail_tpu_torch.ops import linreg_i8 as li
+    Q = torch.zeros((8, 2), dtype=torch.float64, device=dev)
+    Ys = torch.zeros((8, 1), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        li.digit_operand(Q.float(), Ys)
+    with pytest.raises(ValueError, match='contiguous'):
+        li.digit_operand(torch.zeros((2, 8), dtype=torch.float64,
+                                     device=dev).t(), Ys)
+    with pytest.raises(ValueError, match=r'\(N, k\)'):
+        li.digit_operand(Q, Ys[:4])
+    with pytest.raises(ValueError, match='CUDA'):
+        li.digit_operand(Q, Ys.cpu())
+
+
+def test_gwas_through_k7_equals_host_planes(dev, monkeypatch):
+    """`linear_regression_rows` on a small MatrixTable on the card: with
+    K7's planes its statistics are bitwise those of the host's planes
+    (`_digit_planes`, copied to the card as before K7)."""
+    import chip_smoke
+    import hail_tpu_torch as hl
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.ops import _kernels, linreg_i8 as li
+    hl.init(device='cuda', quiet=True)
+    try:
+        mt = chip_smoke.build_mt(hl, np.random.default_rng(3), 1003, 96, 2,
+                                 with_pheno=True)[0]
+        covs = [1.0] + [getattr(mt, f'c{i}') for i in range(chip_smoke.K - 1)]
+        fields = ('sum_x', 'y_transpose_x', 'beta', 'standard_error',
+                  't_stat', 'p_value')
+
+        def stats():
+            statgen._EXACT_CONSTS_CACHE.clear()
+            before = _kernels.launches['hail_digit_planes']
+            res = hl.linear_regression_rows(y=mt.pheno,
+                                            x=mt.GT.n_alt_alleles(),
+                                            covariates=covs)
+            out = {f: np.concatenate([
+                np.asarray(b.columns[f].values, np.float64)
+                for b in res._stage.collect_batches()]) for f in fields}
+            return out, _kernels.launches['hail_digit_planes'] - before
+
+        k7, n_k7 = stats()
+
+        def host_planes(Q, Ys):
+            Wd, sc = li._digit_planes(np.concatenate(
+                [Q.cpu().numpy(), Ys.cpu().numpy()], axis=1))
+            return li.exact_operand(torch.from_numpy(Wd).to(Q.device)), sc
+        monkeypatch.setattr(li, 'digit_operand', host_planes)
+        host, n_host = stats()
+    finally:
+        hl.stop()
+    assert (n_k7, n_host) == (1, 0)
+    for f in fields:
+        assert k7[f].shape == (192,) and np.isfinite(k7[f]).all(), f
+        assert np.array_equal(k7[f].view(np.int64), host[f].view(np.int64)), f

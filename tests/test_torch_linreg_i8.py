@@ -67,6 +67,35 @@ def test_digit_planes_bit_equal(k, P):
     np.testing.assert_array_equal(sc, sc_r)
 
 
+@pytest.mark.parametrize('case', ['random', 'zero_column', 'pow2_max',
+                                  'pow2_ulp', 'tiny_huge', 'ties', 'wide'])
+def test_digit_planes_plain_bit_equal(case):
+    """K7's plain version (`_digit_planes_plain`, the route of CPU tensors)
+    against the port's and the reference's `_digit_planes`, digits and
+    scales bit for bit, and CPU `exact_consts` against `exact_operand` of
+    the host's planes, on the cases of test_torch_kernels_cuda.py."""
+    from test_torch_kernels_cuda import digit_plane_case
+    Q, Ys = digit_plane_case(case)
+    N, KP = Q.shape[0], Q.shape[1] + Ys.shape[1]
+    W = np.concatenate([Q, Ys], axis=1)
+    Wd, sc = port._digit_planes(W)
+    Wd_r, sc_r = ref._digit_planes(W)
+    np.testing.assert_array_equal(Wd, Wd_r)
+    np.testing.assert_array_equal(sc, sc_r)
+    Wd_t, sc_t = port._digit_planes_plain(torch.from_numpy(Q),
+                                          torch.from_numpy(Ys))
+    assert Wd_t.dtype == torch.int8 and tuple(Wd_t.shape) == (N, 7 * KP)
+    np.testing.assert_array_equal(Wd_t.numpy(), Wd)
+    assert sc_t.dtype == np.float64
+    np.testing.assert_array_equal(sc_t, sc)
+    W_op, sc_d = port.exact_consts(Q, Ys, np.zeros((Q.shape[1], Ys.shape[1])),
+                                   np.ones(Ys.shape[1]), N - KP, 'cpu')[:2]
+    want = port.exact_operand(torch.from_numpy(Wd))
+    assert isinstance(W_op, port.ExactOperand)
+    assert torch.equal(W_op.Wdig, want.Wdig) and torch.equal(W_op.WT, want.WT)
+    np.testing.assert_array_equal(sc_d.numpy(), sc)
+
+
 def _reference_pair_and_consts(R, N, k, P, seed, all_missing_row=None):
     nalt, miss, gt = _calls(R, N, 0.1, seed)
     if all_missing_row is not None:
