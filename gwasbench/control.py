@@ -36,8 +36,8 @@ def readings(spec, seed: int, seconds: float, device) -> dict:
     from .run import run_cell
     seen = {}
 
-    def on_check(jobs, C):
-        seen['control'] = check.control(jobs, C) if jobs else {}
+    def on_check(jobs, wl):
+        seen['control'] = check.control(wl.method, jobs, wl.C) if jobs else {}
     t0 = time.perf_counter()
     out = run_cell(spec, seed, seconds, False, device, t0,
                    log=lambda *a, **k: None, on_check=on_check)

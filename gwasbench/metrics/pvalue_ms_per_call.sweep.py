@@ -2,33 +2,10 @@
 program worked out p-values on the host (scipy's t survival function over
 every row and phenotype): the union of the call's `linreg.pvalues` spans,
 which `hail_tpu_torch.utils.timer` records from whichever thread runs them
-(program span), averaged over the calls. A span goes with the call whose
-[t0, t1] holds its start. Nothing where the program records no such span,
-or where the run has no trace of the card (a time is read on the card
-only)."""
+(program span), averaged over the calls (`trace.union_ms_per_call`)."""
 
-import bisect
-
-from gwasbench.trace import _intervals_union
-
-NAME = 'linreg.pvalues'
+from gwasbench.trace import union_ms_per_call
 
 
 def read(run):
-    try:
-        from hail_tpu_torch.utils.timer import spans
-    except ImportError:
-        return None
-    if not run.timeline or not run.calls:
-        return None
-    starts = [r['t0'] * 1e9 for r in run.calls]
-    per_call = [[] for _ in run.calls]
-    for s in spans():
-        i = bisect.bisect_right(starts, s.start_ns) - 1
-        if (s.name == NAME and i >= 0
-                and s.start_ns <= run.calls[i]['t1'] * 1e9):
-            per_call[i].append((s.start_ns, s.end_ns))
-    if not any(per_call):
-        return None
-    return sum(e - s for iv in per_call for s, e in _intervals_union(iv)) \
-        / 1e6 / len(run.calls)
+    return union_ms_per_call(run, 'linreg.pvalues')

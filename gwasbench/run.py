@@ -4,17 +4,44 @@
 
 The cell names a configuration (`configs/<file>`), a traffic mix
 (`traffic/<traffic>.json`) and, by its own name, its limits
-(`limits/<cell>.json`); each metric it reports is read by
-`metrics/<metric>.py`, a module with `read(run)` that returns a number or
-None; `run` holds the cell's sizes (`N`, `k`, `P`, `R` variants a call),
-its configuration and traffic, `setup_s`, `window_start`, the calls of the
-window (`calls`, each with `t0`, `t1`, `variants`, `tests` and, traced,
-`stage_s`, and the device-cache `hits` and `misses`; `completed`, those
-that ended in the window) and, traced on a card, `timeline`
-(`trace.device_timeline`). With `--trace 0` the line holds the cell's
-end-to-end metrics, with `--trace 1` its per-layer metrics, read from a
-`torch.profiler` trace of the window and from spans around the program's
-layers (`trace.py`).
+(`limits/<cell>.json`). Everything else is found by name too, as a module
+loaded from its file (`find`):
+
+- `methods/<method>.py`, named by the configuration's `method` key
+  (`linear_regression_rows` where it has none): the program's call and its
+  reading. It provides `FIELDS`, the output fields read into host arrays,
+  each (rows,) or (rows, P); `EXACT` and `FLOAT`, those of them compared
+  exactly and by their largest relative gap; `call(hl, mt, x, ys,
+  covariates, label)`, which calls the program on the MatrixTable `mt` with
+  the genotype expression `x`, the phenotype expressions `ys` and the
+  covariate expressions, and returns every field as a host array, the read
+  inside `label('read')`; `size(out)`, a result's (rows, tests);
+  `bad_rows(out, R)`, rows missing from a result of R or not to be
+  trusted; `context(C, dtype)`, what its reference shares over a run's
+  compared calls, from the (n, k) covariates in `dtype`; and
+  `reference(x, missing, Y, ctx)`, the plain reference's fields for the
+  compared rows (`reference/`), from their genotypes, missing masks and the
+  call's (n, P) phenotypes.
+- `genotypes/<mode>.py`, named by the mix's `genotypes` key: where a call's
+  genotypes come from (`traffic.py` says what a mode provides). `resident`:
+  one MatrixTable built in set-up and used by every call, so each call
+  finds every partition in the device cache; `fresh`: each call wraps a
+  chunk of a pool made in set-up in a new MatrixTable, so each call misses
+  the cache on every partition and the program packs, ships and unpacks
+  (K4) it.
+- `metrics/<metric>.py`, one for each metric the cell reports: `read(run)`
+  returns a number or None. `run` holds the cell's sizes (`N`, `k`, `P`,
+  `R` variants a call), its configuration and traffic, `setup_s`,
+  `window_start`, the calls of the window (`calls`, each with `t0`, `t1`,
+  `variants`, `tests` and, traced, `stage_s`, and the device-cache `hits`
+  and `misses`; `completed`, those that ended in the window) and, traced on
+  a card, `timeline` (`trace.device_timeline`).
+
+With `--trace 0` the line holds the cell's end-to-end metrics, with
+`--trace 1` its per-layer metrics, read from a `torch.profiler` trace of
+the window and from spans around the program's layers (`trace.py`). After
+the window a seeded sample of the calls is worked out again by the method's
+reference and compared (`check.py`).
 
 The run exits with another code than 0 and prints no result where there is
 no NVIDIA card, fewer cards than the cell asks for, no program to measure, or
@@ -81,14 +108,21 @@ def cell_spec(workload: str, bench: Optional[dict] = None) -> SimpleNamespace:
         end_to_end=e2e, per_layer=layer)
 
 
-def reader(name: str):
-    """`metrics/<name>.py`'s `read`."""
-    path = HERE / 'metrics' / f'{name}.py'
+def find(kind: str, name: str):
+    """`<kind>/<name>.py` of the harness, loaded as a module of its own."""
+    path = HERE / kind / f'{name}.py'
+    if not path.is_file():
+        raise KeyError(f'no {kind} {name!r}: {path} is not a file')
     spec = importlib.util.spec_from_file_location(
-        'gwasbench_metric_' + name.replace('.', '_'), path)
+        f'gwasbench_{kind}_' + name.replace('.', '_'), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    """`metrics/<name>.py`'s `read`."""
+    return find('metrics', name).read
 
 
 def check_card(chips: int):
@@ -102,24 +136,24 @@ def check_card(chips: int):
 
 
 def counters() -> tuple:
+    """The program's device-cache hits and misses and K4 launches so far."""
     from hail_tpu_torch.ops import _kernels, devcache
     return devcache.hits, devcache.misses, \
         _kernels.launches['hail_unpack_gt_2bit']
 
 
-def cache_fault(wl, before, after) -> bool:
-    """Whether a call's device-cache hits, misses and K4 launches differ
-    from what its mix makes: the genotypes are resident, so a hit of every
-    partition, no miss and no K4 launch."""
-    hits, misses, k4 = (a - b for a, b in zip(after, before))
-    return not (hits == wl.n_parts and misses == 0 and k4 == 0)
+def cache_fault(expected, before, after) -> bool:
+    """Whether a call's device-cache hits, misses and K4 launches, the
+    change of `counters()` over it, differ from the `expected` ones of its
+    genotype mode."""
+    return tuple(a - b for a, b in zip(after, before)) != tuple(expected)
 
 
 def run_cell(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
              device, t0: float, log=print, on_check=None) -> dict:
     """Set up, measure and check one run of a cell on `device`. Returns the
-    result line as a dict, its `checks` last. `on_check(jobs, C)`, where
-    given, sees the compared calls and the covariates (`control.py`)."""
+    result line as a dict, its `checks` last. `on_check(jobs, wl)`, where
+    given, sees the compared calls and the workload (`control.py`)."""
     import torch
     import hail_tpu_torch as hl
     from . import check, traffic as traffic_mod
@@ -129,6 +163,7 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
     wl = traffic_mod.Workload(hl, spec.config, spec.traffic, seed, device)
     wl.setup()
     on_card = device.type == 'cuda'
+    expected = wl.genotypes.expected(on_card)
     if on_card:
         torch.cuda.synchronize(device)
     # what set-up made stays: the collector need not walk it in the window
@@ -164,12 +199,12 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
                 failed += 1
                 log(traceback.format_exc(), file=sys.stderr)
                 continue
-            rec.update(t0=t_a, t1=time.perf_counter(),
-                       variants=res['out']['n'].shape[0],
-                       tests=res['out']['beta'].size)
+            t_b = time.perf_counter()
             after = counters()
-            rec.update(hits=after[0] - before[0], misses=after[1] - before[1])
-            cache_faults += cache_fault(wl, before, after)
+            variants, tests = wl.method.size(res['out'])
+            rec.update(t0=t_a, t1=t_b, variants=variants, tests=tests,
+                       hits=after[0] - before[0], misses=after[1] - before[1])
+            cache_faults += cache_fault(expected, before, after)
             rows_bad += wl.bad_rows(res['out'])
             k = wl.keep(c, res)
             if k is not None:
@@ -195,7 +230,8 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
     hl.stop()
     gc.unfreeze()
     jobs = wl.jobs(kept)
-    field_gaps, n_wrong = check.compare(jobs, wl.C) if jobs else ({}, 0)
+    field_gaps, n_wrong = (check.compare(wl.method, jobs, wl.C) if jobs
+                           else ({}, 0))
     log('setup_phases_s ' + ' '.join(f'{n}={v:.3f}' for n, v in
                                      wl.setup_phases.items()),
         file=sys.stderr)
@@ -211,7 +247,7 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
                'n_wrong': n_wrong, 'rows_bad': rows_bad,
                'cache_faults': cache_faults, 'calls_checked': len(jobs)}
     if on_check is not None:
-        on_check(jobs, wl.C)
+        on_check(jobs, wl)
     correct = (check.verdict(numbers, spec.limits) and failed == 0
                and bool(calls))
     device_out = {'platform': 'gpu' if on_card else device.type,

@@ -12,7 +12,10 @@ from gwasbench import run as run_mod
 
 READERS = ['consts_ms_per_call.sweep', 'qr_ms_per_call.sweep',
            'pvalue_ms_per_call.sweep', 'part_ms.sweep',
-           'fetch_mb_per_call.sweep', 'k3_roofline.sweep']
+           'fetch_mb_per_call.sweep', 'k3_roofline.sweep',
+           'ship_ms_per_call.fresh', 'pack_ms_per_call.fresh']
+# the readers that read spans only where partitions miss the device cache
+FRESH_ONLY = {'ship_ms_per_call.fresh', 'pack_ms_per_call.fresh'}
 MS = 1_000_000          # ns
 
 
@@ -43,7 +46,9 @@ def spans(monkeypatch):
 @pytest.mark.parametrize('metric,name', [
     ('consts_ms_per_call.sweep', 'linreg.consts'),
     ('qr_ms_per_call.sweep', 'linreg.qr'),
-    ('pvalue_ms_per_call.sweep', 'linreg.pvalues')])
+    ('pvalue_ms_per_call.sweep', 'linreg.pvalues'),
+    ('ship_ms_per_call.fresh', 'part.ship'),
+    ('pack_ms_per_call.fresh', 'ship.pack')])
 def test_union_per_call(metric, name, spans):
     read = run_mod.reader(metric)
     spans += [span(name, 1100, 1300), span(name, 1200, 1400),    # 300 ms
@@ -105,7 +110,8 @@ def test_nothing_to_read(metric, spans, monkeypatch):
     spans += [span(n, 1100, 1200, name='hail_linreg_exact_pass', rows=8,
                    samples=8, cols=7, bytes=8)
               for n in ('linreg.consts', 'linreg.qr', 'linreg.pvalues',
-                        'partition', 'fetch', 'kernel')]
+                        'partition', 'fetch', 'kernel', 'part.ship',
+                        'ship.pack')]
     ops = [('linreg_exact_pass_kernel', 1.0)]
     assert read(fake_run(ops)) is not None
     no_card = fake_run(ops)
@@ -119,14 +125,16 @@ def test_nothing_to_read(metric, spans, monkeypatch):
     assert read(fake_run(ops)) is None
 
 
-def test_readers_find_the_spans_of_a_traced_run():
+@pytest.mark.parametrize('cell', ['kg.scan', 'kg.fresh'])
+def test_readers_find_the_spans_of_a_traced_run(cell):
     """The names the readers look for are the ones the program records: a
     traced run at a size the CPU holds, its calls taken from the program's
     own call spans, and a made-up device time for K3, whose launches need
-    the card."""
+    the card. The ship's readers read only where partitions miss the
+    device cache."""
     from hail_tpu_torch.utils import timer
     timer.clear()
-    tiny_run('kg.scan', trace=True)
+    tiny_run(cell, trace=True)
     spans = timer.spans()
     by_action = {}
     for s in spans:
@@ -141,6 +149,13 @@ def test_readers_find_the_spans_of_a_traced_run():
                                         window_s=1.0, idle_gaps=[]))
     got = {m: run_mod.reader(m)(run) for m in READERS}
     assert got.pop('k3_roofline.sweep') is None
+    for m in FRESH_ONLY:
+        v = got.pop(m)
+        assert (v is not None and v > 0) if cell == 'kg.fresh' else v is None
+    if cell == 'kg.fresh':
+        # packing is a part of the ship
+        ship = run_mod.reader('ship_ms_per_call.fresh')(run)
+        assert run_mod.reader('pack_ms_per_call.fresh')(run) <= ship
     assert all(v is not None and v > 0 for v in got.values()), got
     # one phenotype over 512 variants: the (512, 5) f64 result a call
     assert got['fetch_mb_per_call.sweep'] == pytest.approx(512 * 5 * 8 / 1e6)

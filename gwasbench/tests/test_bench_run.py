@@ -15,7 +15,7 @@ import pytest
 from conftest import ROOT, tiny_run
 from gwasbench import check, run, trace
 
-CELLS = ['ukb.sweep', 'kg.scan']
+CELLS = ['ukb.sweep', 'kg.scan', 'kg.fresh']
 
 
 @pytest.mark.parametrize('cell', CELLS)
@@ -23,8 +23,8 @@ def test_program_passes_and_control_fails(cell):
     """The program's numbers within the cell's limits; the control, the
     reference in float32 in the program's place, above the limit."""
     seen = {}
-    out = tiny_run(cell, on_check=lambda jobs, C: seen.update(
-        control=check.control(jobs, C)))
+    out = tiny_run(cell, on_check=lambda jobs, wl: seen.update(
+        control=check.control(wl.method, jobs, wl.C)))
     assert out['correct'], out['checks']
     limit = out['checks']['max_rel_err']['limit']
     assert out['checks']['max_rel_err']['value'] <= limit
@@ -72,6 +72,15 @@ FAULTS = {
     # call
     'stale_phenotypes': ('ukb.sweep', 'hail_tpu_torch.methods.statgen',
                          '_exact_consts_cached', _stale),
+    # the same faults where every call ships fresh genotypes
+    'altered_beta.fresh': ('kg.fresh', 'hail_tpu_torch.ops.linreg_i8',
+                           '_exact_epilogue', _scale_beta),
+    'half_samples.fresh': ('kg.fresh', 'hail_tpu_torch.ops.linreg_i8',
+                           'exact_pass', _half_samples),
+    # a state returned unchanged: the first partition's shipped genotypes
+    # for every later look-up of the device cache
+    'stale_genotypes.fresh': ('kg.fresh', 'hail_tpu_torch.ops.devcache',
+                              'get', _stale),
 }
 
 
@@ -174,7 +183,8 @@ def test_device_timeline_busy_and_gaps():
     ('ukb.sweep', {'driver_ms_per_call.sweep', 'stage_ms_per_call.sweep',
                    'cache_hit_share.sweep'}),
     ('kg.scan', {'driver_ms_per_call.sweep', 'stage_ms_per_call.sweep',
-                 'cache_hit_share.sweep'})])
+                 'cache_hit_share.sweep'}),
+    ('kg.fresh', {'driver_ms_per_call.sweep', 'stage_ms_per_call.sweep'})])
 def test_traced_run_reads_its_per_layer_metrics(cell, names):
     """The program's spans and counters are read on any device; what the
     device trace gives needs a card."""
@@ -182,7 +192,70 @@ def test_traced_run_reads_its_per_layer_metrics(cell, names):
     assert out['correct'], out['checks']
     assert set(out['metrics']) == names
     assert 'busy_s' in out['device'] and 'window_s' in out['device']
-    assert out['metrics']['cache_hit_share.sweep']['value'] == 100.0
+    if 'cache_hit_share.sweep' in names:
+        assert out['metrics']['cache_hit_share.sweep']['value'] == 100.0
+
+
+def _genotypes(mode):
+    import torch
+    from gwasbench import data
+    dev = torch.device('cpu')
+    cfg = dict(samples=8, maf_min=0.05, missing=0.02)
+    traffic = dict(variants=8, partitions=4, chunks=2)
+    return run.find('genotypes', mode).Genotypes(
+        cfg, traffic, data.generator(1, dev), dev,
+        data.column_batch({'z': np.zeros(8)}))
+
+
+@pytest.mark.parametrize('mode,on_card,counts,fault', [
+    ('resident', True, (4, 0, 0), False),
+    ('resident', False, (4, 0, 0), False),
+    ('resident', True, (3, 1, 0), True),
+    ('resident', True, (4, 0, 1), True),
+    ('resident', True, (0, 4, 4), True),
+    ('fresh', True, (0, 4, 4), False),
+    ('fresh', False, (0, 4, 0), False),
+    ('fresh', True, (0, 4, 0), True),
+    ('fresh', True, (1, 3, 3), True),
+    ('fresh', True, (4, 0, 0), True),
+    ('fresh', False, (0, 4, 4), True)])
+def test_cache_fault_by_genotype_mode(mode, on_card, counts, fault):
+    """A call's change of the device-cache counters against its mode:
+    resident, every partition a hit, no miss, no K4 launch; fresh, every
+    partition a miss, no hit, one K4 launch a partition on a card."""
+    expected = _genotypes(mode).expected(on_card)
+    before = (10, 20, 30)
+    after = tuple(b + d for b, d in zip(before, counts))
+    assert run.cache_fault(expected, before, after) is fault
+
+
+def test_fresh_chunks_are_new_tables():
+    """Each call of the fresh mode wraps its chunk in a new MatrixTable,
+    chunk c mod `chunks`; the resident mode hands over one table."""
+    fresh, resident = _genotypes('fresh'), _genotypes('resident')
+    assert fresh.table(0) is not fresh.table(0)
+    assert fresh.chunk(0) is fresh.chunk(2) and fresh.chunk(0) \
+        is not fresh.chunk(1)
+    assert resident.table(0) is resident.table(5)
+    x0, m0 = fresh.rows(0, np.arange(8))
+    x1, _ = fresh.rows(1, np.arange(8))
+    assert x0.shape == m0.shape == (8, 8)
+    assert not np.array_equal(x0, x1)
+
+
+def test_fresh_run_misses_the_cache_on_every_partition():
+    """A tiny kg.fresh run: every partition of every call, warm calls
+    included, a device-cache miss and no hit, and the run correct."""
+    from hail_tpu_torch.ops import devcache
+    from conftest import tiny_spec
+    spec = tiny_spec('kg.fresh')
+    h0, m0 = devcache.hits, devcache.misses
+    out = tiny_run('kg.fresh', spec=spec)
+    assert out['correct'], out['checks']
+    assert out['checks']['cache_faults']['value'] == 0
+    calls = out['attempted'] + spec.traffic['warm_calls']
+    assert devcache.hits - h0 == 0
+    assert devcache.misses - m0 == calls * spec.traffic['partitions']
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """BENCHMARK.json against the contract it is written to, and the files the
-harness finds by name: each configuration, traffic mix, limits file and
-metric reader."""
+harness finds by name: each configuration, its method, traffic mix and
+genotype mode, limits file and metric reader; and that a new method is a
+new file."""
 
 import json
 import os
@@ -8,7 +9,7 @@ import re
 
 import pytest
 
-from conftest import ROOT
+from conftest import ROOT, tiny_run, tiny_spec
 
 NAME = re.compile(r'^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$')
 UNIT = re.compile(r'^[A-Za-z0-9_/%.-]{1,16}$')
@@ -82,6 +83,38 @@ def test_cell_finds_its_files(cell):
     for key in ('genotypes', 'variants', 'partitions', 'phenotypes',
                 'warm_calls', 'check_calls', 'check_rows'):
         assert key in spec.traffic
+    assert hasattr(run.find('genotypes', spec.traffic['genotypes']),
+                   'Genotypes')
+
+
+def test_held_back_cell_finds_its_files():
+    """The held-back cell's mix, limits and readers are in place, so that
+    running it is one entry of BENCHMARK.json."""
+    from conftest import HELD_BACK, bench_for_tests
+    from gwasbench import run
+    cell = HELD_BACK['workload']['name']
+    spec = run.cell_spec(cell, bench_for_tests())
+    assert spec.traffic['genotypes'] == 'fresh'
+    assert {m['name'] for m in spec.per_layer} >= set(HELD_BACK['readers'])
+    for m in spec.end_to_end + spec.per_layer:
+        assert callable(run.reader(m['name']))
+    assert cell not in {w['name'] for w in bench()['workloads']}
+
+
+@pytest.mark.parametrize('config', [c['file'] for c in bench()['configs']])
+def test_each_configuration_names_a_method_file(config):
+    """The configuration's method (`linear_regression_rows` where it names
+    none) is a file under methods/ with what run.py asks of a method."""
+    from gwasbench import run
+    with open(os.path.join(ROOT, config)) as f:
+        name = json.load(f).get('method', 'linear_regression_rows')
+    assert os.path.isfile(os.path.join(ROOT, 'gwasbench', 'methods',
+                                       f'{name}.py'))
+    method = run.find('methods', name)
+    for attr in ('FIELDS', 'EXACT', 'FLOAT', 'call', 'size', 'bad_rows',
+                 'context', 'reference'):
+        assert hasattr(method, attr), attr
+    assert set(method.EXACT) | set(method.FLOAT) <= set(method.FIELDS)
 
 
 def test_configs_are_used_and_state_their_cuts():
@@ -116,3 +149,78 @@ def test_a_new_metric_is_a_new_file(tmp_path, monkeypatch):
         'def read(run):\n    return float(len(run.calls))\n')
     monkeypatch.setattr(run, 'HERE', tmp_path)
     assert run.reader('calls.sweep')(type('R', (), {'calls': [1, 2]})) == 2.0
+
+
+NEW_METHOD = """\"\"\"A method of one field: beta, from linear_regression_rows, held to a
+per-row least-squares solve.\"\"\"
+import numpy as np
+
+from gwasbench.run import find
+
+FIELDS = ('beta',)
+EXACT = ()
+FLOAT = ('beta',)
+lstsq = find('reference', 'beta_lstsq')
+
+
+def call(hl, mt, x, ys, covariates, label):
+    res = hl.linear_regression_rows(y=ys, x=x, covariates=covariates)
+    batches = res._stage.collect_batches()
+    with label('read'):
+        beta = np.concatenate([np.asarray(b.columns['beta'].values)
+                               for b in batches])
+    return {'beta': beta.reshape(beta.shape[0], -1)}
+
+
+def size(out):
+    return out['beta'].shape[0], out['beta'].size
+
+
+def bad_rows(out, R):
+    return abs(out['beta'].shape[0] - R) + int(
+        (~np.isfinite(out['beta'])).any(axis=1).sum())
+
+
+def context(C, dtype):
+    return np.asarray(C, dtype)
+
+
+def reference(x, missing, Y, C):
+    return {'beta': lstsq.beta(x, missing, C, Y)}
+"""
+
+NEW_REFERENCE = """\"\"\"Each row's y ~ [C | x] by np.linalg.lstsq, the missing calls replaced
+by the mean of the row's other calls.\"\"\"
+import numpy as np
+
+
+def beta(x, missing, C, Y):
+    out = []
+    for g, m in zip(x, missing):
+        g = g.astype(C.dtype)
+        g[m] = g[~m].mean()
+        X = np.concatenate([C, g[:, None]], axis=1)
+        out.append(np.linalg.lstsq(X, np.asarray(Y, C.dtype),
+                                   rcond=None)[0][-1])
+    return np.asarray(out)
+"""
+
+
+def test_a_new_method_is_a_new_file(tmp_path, monkeypatch):
+    """A method is found by the configuration's `method` key alone: a file
+    added under methods/, with its reference added under reference/, runs a
+    whole tiny cell without an edit to the harness."""
+    from gwasbench import run
+    spec = tiny_spec('kg.scan')
+    spec.config['method'] = 'linreg_beta'
+    for kind in ('genotypes', 'metrics'):
+        (tmp_path / kind).symlink_to(os.path.join(ROOT, 'gwasbench', kind))
+    (tmp_path / 'methods').mkdir()
+    (tmp_path / 'methods' / 'linreg_beta.py').write_text(NEW_METHOD)
+    (tmp_path / 'reference').mkdir()
+    (tmp_path / 'reference' / 'beta_lstsq.py').write_text(NEW_REFERENCE)
+    monkeypatch.setattr(run, 'HERE', tmp_path)
+    out = tiny_run('kg.scan', spec=spec)
+    assert out['correct'], out['checks']
+    assert out['checks']['calls_checked']['value'] >= 1
+    assert 0 < out['checks']['max_rel_err']['value'] < 1e-9

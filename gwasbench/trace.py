@@ -101,6 +101,32 @@ def _intervals_union(iv: List[tuple]) -> List[tuple]:
     return out
 
 
+def union_ms_per_call(run, name: str):
+    """The milliseconds of a traced call covered by the program's spans
+    named `name` (`hail_tpu_torch.utils.timer`), counted once where they
+    overlap (spans from several threads), averaged over the calls. A span
+    goes with the call whose [t0, t1] holds its start. None where the
+    program records no such span, or where the run has no trace of the
+    card (a time is read on the card only)."""
+    try:
+        from hail_tpu_torch.utils.timer import spans
+    except ImportError:
+        return None
+    if not run.timeline or not run.calls:
+        return None
+    starts = [r['t0'] * 1e9 for r in run.calls]
+    per_call = [[] for _ in run.calls]
+    for s in spans():
+        i = bisect.bisect_right(starts, s.start_ns) - 1
+        if (s.name == name and i >= 0
+                and s.start_ns <= run.calls[i]['t1'] * 1e9):
+            per_call[i].append((s.start_ns, s.end_ns))
+    if not any(per_call):
+        return None
+    return sum(e - s for iv in per_call for s, e in _intervals_union(iv)) \
+        / 1e6 / len(run.calls)
+
+
 def _on_trace_clock(host_spans: List[tuple], calls: List[tuple]):
     """The host spans moved onto the trace's clock, call by call: each
     call's host span is mapped linearly onto its profiler span (the two

@@ -2,16 +2,23 @@
 
 A mix is a data file, `traffic/<name>.json`, read by `Workload`. Every mix
 is a closed loop with one caller: it makes the next call once the last one's
-statistics are on the host. A call is
+outputs are on the host. A call hands the method (`methods/<method>.py`,
+named by the configuration) a MatrixTable from the mix's genotype mode, its
+genotype expression, the call's P phenotype expressions and the
+configuration's covariates; the method calls the program and reads every
+output field into host arrays. Keys of a mix:
 
-    hl.linear_regression_rows(y=<P phenotypes>, x=mt.GT.n_alt_alleles(),
-                              covariates=<the configuration's covariates>)
-
-with every output field of every row read into host arrays. Keys of a mix:
-
-- `genotypes`: `resident`, one MatrixTable of `variants` rows in
-  `partitions` equal partitions, built in set-up and used by every call
-  (the only kind so far);
+- `genotypes`: the mode, `genotypes/<mode>.py`, a module with a class
+  `Genotypes(cfg, traffic, gen, device, columns)` that makes the mode's
+  host calls from the device generator `gen` in set-up and provides
+  `table(c)`, the MatrixTable of call `c` (made inside the timed call);
+  `x(mt)`, the genotype expression; `rows(c, rows)`, the reference's
+  genotypes and missing masks of rows `rows` of call `c`, from the calls
+  the benchmark made; `expected(on_card)`, the device-cache hits, misses
+  and K4 launches one call makes; and `close()`, which drops what the
+  program holds. `resident` and `fresh` so far (`run.py`);
+- `variants`, `partitions`: the rows of one call and the equal partitions
+  they come in; a mode may read more keys (`fresh`: `chunks`);
 - `phenotypes`: `new`, each call's P phenotypes being new columns, y_a + c
   * y_b over the configuration's pool with seeded a, b and c (the only
   kind so far);
@@ -19,8 +26,8 @@ with every output field of every row read into host arrays. Keys of a mix:
 - `check_calls`, `check_rows`: how many finished calls the reference works
   out again, and how many seeded rows of each call are kept for that.
 
-P, the samples, the covariates and the call spectrum are the
-configuration's (`configs/<name>.json`).
+P, the samples, the covariates and the method are the configuration's
+(`configs/<name>.json`).
 """
 
 from __future__ import annotations
@@ -33,14 +40,18 @@ import numpy as np
 import torch
 
 from . import data
-from .reference.ols import FIELDS
 
 WINDOW, WARM = 1, 2          # streams of the host generator, per call
+
+
+def _no_label(name: str):
+    return contextlib.nullcontext()
 
 
 class Workload:
     def __init__(self, hl, config: dict, traffic: dict, seed: int,
                  device: torch.device):
+        from .run import find
         self.hl, self.cfg, self.trf = hl, config, traffic
         self.seed, self.device = seed, device
         self.N = config['samples']
@@ -48,32 +59,27 @@ class Workload:
         self.terms = data.covariate_terms(config['covariates'])
         self.pool = config['phenotype_pool']
         self.R = traffic['variants']
-        self.n_parts = traffic['partitions']
-        if self.R % self.n_parts:
+        if self.R % traffic['partitions']:
             raise ValueError('variants must split evenly into partitions')
-        self.per_part = self.R // self.n_parts
-        self.mode = traffic['genotypes']
-        if self.mode != 'resident':
-            raise ValueError(f'unknown genotypes {self.mode!r}')
         if traffic['phenotypes'] != 'new':
             raise ValueError(f"unknown phenotypes {traffic['phenotypes']!r}")
+        self.method = find('methods',
+                           config.get('method', 'linear_regression_rows'))
+        self._mode = find('genotypes', traffic['genotypes']).Genotypes
+        self.genotypes = None
 
     # -- set-up ----------------------------------------------------------
     def setup(self) -> None:
-        """Make the inputs from the seed, build what the mix keeps, and make
-        the warm-up calls (the first fills the device cache where the mix is
-        resident)."""
+        """Make the inputs from the seed, the column fields first, then the
+        genotype mode's calls, and make the warm-up calls (the first fills
+        the device cache where the mix is resident)."""
         t = time.perf_counter()
         gen = data.generator(self.seed, self.device)
         self.cols = data.make_columns(gen, self.device, self.N,
                                       self.cfg['column_fields'], self.pool)
         self.columns = data.column_batch(self.cols)
-
-        self.parts = [data.make_calls(gen, self.device, self.per_part,
-                                      self.N, self.cfg['maf_min'],
-                                      self.cfg['missing'])
-                      for _ in range(self.n_parts)]
-        self.mt = data.matrix_table(self.parts, self.columns)
+        self.genotypes = self._mode(self.cfg, self.trf, gen, self.device,
+                                    self.columns)
         self.C = data.covariate_matrix(self.terms, self.cols, self.N)
         self.setup_phases = {'inputs': time.perf_counter() - t}
         for c in range(self.trf['warm_calls']):
@@ -100,20 +106,14 @@ class Workload:
         return np.stack(cols, axis=1)
 
     def call(self, c: int, stream: int = WINDOW, label=None) -> dict:
-        """One call, its outputs read to the host. Returns every field as a
-        host array, (R,) for n and sum_x, (R, P) for the others."""
-        hl, mt = self.hl, self.mt
+        """One call, its outputs read to the host: `out`, the method's
+        fields as host arrays, and `spec`, the call's phenotypes."""
         spec = self.phenotypes(c, stream)
+        mt = self.genotypes.table(c)
         ys = [mt[f'y{a}'] + coef * mt[f'y{b}'] for a, b, coef in spec]
-        res = hl.linear_regression_rows(
-            y=ys if self.P > 1 else ys[0], x=mt.GT.n_alt_alleles(),
-            covariates=data.covariate_exprs(mt, self.terms))
-        batches = res._stage.collect_batches()
-        with label('read') if label else contextlib.nullcontext():
-            out = {f: np.concatenate([np.asarray(b.columns[f].values)
-                                      for b in batches]) for f in FIELDS}
-        for f in FIELDS[2:]:
-            out[f] = out[f].reshape(out[f].shape[0], -1)
+        out = self.method.call(self.hl, mt, self.genotypes.x(mt), ys,
+                               data.covariate_exprs(mt, self.terms),
+                               label or _no_label)
         return dict(out=out, spec=spec)
 
     # -- what the check keeps ---------------------------------------------
@@ -123,45 +123,33 @@ class Workload:
                                   replace=False))
 
     def bad_rows(self, out: dict) -> int:
-        """Rows missing from a call's result, or holding a value that is not
-        finite."""
-        n = out['n'].shape[0]
-        bad = abs(n - self.R)
-        if n == self.R:
-            finite = np.ones(n, bool)
-            for f in FIELDS[1:]:
-                v = out[f].reshape(n, -1)
-                finite &= np.isfinite(v).all(axis=1)
-            bad += int((~finite).sum())
-        return bad
+        return self.method.bad_rows(out, self.R)
 
     def keep(self, c: int, result: dict) -> Optional[dict]:
         out = result['out']
-        if out['n'].shape[0] != self.R:
+        if self.method.size(out)[0] != self.R:
             return None
         rows = self.kept_rows(c)
-        return dict(c=c, spec=result['spec'],
-                    rows=rows, got={f: out[f][rows].copy() for f in FIELDS})
+        return dict(c=c, spec=result['spec'], rows=rows,
+                    got={f: out[f][rows].copy() for f in self.method.FIELDS})
 
     def jobs(self, kept: List[dict]) -> List[dict]:
         """The seeded sample of finished calls the reference works out
-        again, with the inputs it needs: the sampled rows' n_alt and missing
-        masks, decoded from the calls the benchmark made, and the call's
-        phenotypes."""
+        again, with the inputs it needs: the sampled rows' genotypes and
+        missing masks, taken from the calls the benchmark made, and the
+        call's phenotypes."""
         rng = data.host_rng(self.seed, 6)
         n = min(self.trf['check_calls'], len(kept))
         jobs = []
         for i in sorted(int(i) for i in rng.permutation(len(kept))[:n]):
             j = kept[i]
-            parts = self.parts
-            p, r = j['rows'] // self.per_part, j['rows'] % self.per_part
-            packed = np.stack([parts[a][0][b] for a, b in zip(p, r)])
-            miss = np.stack([parts[a][1][b] for a, b in zip(p, r)])
-            jobs.append(dict(c=j['c'], n_alt=data.decode_n_alt(packed),
-                             missing=miss, Y=self.Y(j['spec']), got=j['got']))
+            x, missing = self.genotypes.rows(j['c'], j['rows'])
+            jobs.append(dict(c=j['c'], x=x, missing=missing,
+                             Y=self.Y(j['spec']), got=j['got']))
         return jobs
 
     def close(self) -> None:
-        """Drop what the program made or holds: the MatrixTable and its
+        """Drop what the program made or holds: the MatrixTables and their
         device buffers. The inputs stay for the reference."""
-        self.mt = None
+        if self.genotypes is not None:
+            self.genotypes.close()
