@@ -734,16 +734,17 @@ def _fit_view_struct(view: Optional[dict]) -> Optional[Struct]:
 def _glm_column_setup(mt, ys, covariates):
     """Shared column-plane prep: complete-case filter over all y + covariates
     (reference `mt.filter_cols(hl.array(y + covariates).all(hl.is_defined))`).
-    Returns (keep_idx, covmat, yvecs)."""
-    yv_all = [_eval_col_f64(mt, e) for e in ys]
-    Cov, cov_miss = _covariate_matrix(mt, covariates)
-    keep = ~cov_miss
-    for _, m in yv_all:
-        keep &= ~m
-    idx = np.flatnonzero(keep)
-    covmat = Cov[idx]
-    yvecs = [v[idx] for v, _ in yv_all]
-    return idx, covmat, yvecs
+    Returns (keep_idx, covmat, yvecs). A `glm.columns` span."""
+    with timer.span('glm.columns', n_exprs=len(ys) + len(covariates)):
+        yv_all = [_eval_col_f64(mt, e) for e in ys]
+        Cov, cov_miss = _covariate_matrix(mt, covariates)
+        keep = ~cov_miss
+        for _, m in yv_all:
+            keep &= ~m
+        idx = np.flatnonzero(keep)
+        covmat = Cov[idx]
+        yvecs = [v[idx] for v, _ in yv_all]
+        return idx, covmat, yvecs
 
 
 def _impute_host(Gk, Mk):
@@ -815,7 +816,8 @@ def _logistic_device_columns(test, dev, covmat, null_fit, gi_thunk):
     DeferredObjectColumns whose payload is only computed if something reads
     them (the reference achieves the same via relational field pruning)."""
     if test == 'score':
-        return _score_columns(dev)
+        with timer.span('glm.pvalues', rows=len(dev['chi_sq_stat'])):
+            return _score_columns(dev)
     k = covmat.shape[1]
     f64, i32, bl = ht.tfloat64, ht.tint32, ht.tbool
     P = C.PrimitiveColumn
@@ -825,7 +827,8 @@ def _logistic_device_columns(test, dev, covmat, null_fit, gi_thunk):
         f_conv = dev['full_status'] == 1
         okr = n_conv & f_conv
         R = okr.shape[0]
-        with np.errstate(invalid='ignore'):
+        with timer.span('glm.pvalues', rows=R), \
+                np.errstate(invalid='ignore'):
             chi = 2.0 * (dev['full_ll'] - dev['null_ll'])
             p = _pchisqtail_vec(chi, 1.0)
         miss = ~okr
@@ -880,7 +883,8 @@ def _logistic_device_columns(test, dev, covmat, null_fit, gi_thunk):
     miss = ~conv
     b_last = dev['b'][:, -1]
     if test == 'wald':
-        with np.errstate(invalid='ignore'):
+        with timer.span('glm.pvalues', rows=R), \
+                np.errstate(invalid='ignore'):
             p = 2.0 * _pnorm_vec(-np.abs(dev['z']).reshape(-1))
         return {
             'beta': P(f64, np.where(conv, b_last, np.nan), miss.copy()),
@@ -891,7 +895,7 @@ def _logistic_device_columns(test, dev, covmat, null_fit, gi_thunk):
             'p_value': P(f64, np.where(conv, p, np.nan), miss.copy()),
             'fit': fit_col,
         }
-    with np.errstate(invalid='ignore'):
+    with timer.span('glm.pvalues', rows=R), np.errstate(invalid='ignore'):
         chi = 2.0 * (dev['ll'] - float(null_fit['log_lkhd']))
         p = _pchisqtail_vec(chi, 1.0)
     return {
@@ -1072,7 +1076,17 @@ def logistic_regression_rows(test: str, y, x, covariates, pass_through=(),
     """Per-variant logistic GWAS, tests wald/lrt/score/firth — a faithful
     port of the reference `_logistic_regression_rows_nd` (statgen.py:1310)
     via stats/glmfit.py, preserving its Newton/Firth iteration semantics
-    (incl. exact n_iterations / exploded behavior)."""
+    (incl. exact n_iterations / exploded behavior). The call and the
+    stage of the Table it returns are one action of utils/timer.py, the
+    call a `glm.call` span."""
+    with timer.action(), timer.span('glm.call', test=test) as call:
+        return _logistic_regression_rows(call, test, y, x, covariates,
+                                         pass_through, max_iterations,
+                                         tolerance)
+
+
+def _logistic_regression_rows(call, test, y, x, covariates, pass_through,
+                              max_iterations, tolerance) -> Table:
     from ..stats import glmfit
     from ..utils.misc import FatalError
     device = Env.device()
@@ -1096,6 +1110,7 @@ def logistic_regression_rows(test: str, y, x, covariates, pass_through=(),
     if y_is_list and len(y) == 0:
         raise ValueError("'logistic_regression_rows': found no values for 'y'")
     ys = [to_expr(e) for e in (y if y_is_list else [y])]
+    call.set(phenotypes=len(ys))
     for e in ys:
         _raise_unless_column_indexed('logistic_regression_rows/y', e)
     row_fields = _get_regression_row_fields(mt, pass_through,
@@ -1107,7 +1122,11 @@ def logistic_regression_rows(test: str, y, x, covariates, pass_through=(),
     # (reference fit_null .or_error, statgen.py:1582)
     null_fits = []
     for yvec in yvecs:
-        nf = glmfit.logreg_fit(covmat, yvec, None, max_iterations, tolerance)
+        with timer.span('glm.null', samples=covmat.shape[0],
+                        covariates=covmat.shape[1]) as sp:
+            nf = glmfit.logreg_fit(covmat, yvec, None, max_iterations,
+                                   tolerance)
+            sp.set(iterations=nf['n_iterations'])
         if nf['exploded']:
             raise FatalError(
                 "Failed to fit logistic regression null model (standard MLE "

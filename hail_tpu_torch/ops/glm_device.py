@@ -34,15 +34,31 @@ operation-for-operation reference mirror):
 
 The `while_loop`s of the reference are Python loops here: one host sync
 per iteration for the any-row-active test.
+
+Memory: a block of R rows over N samples keeps a few (R, N) f64 planes
+live in each iteration (`_NEWTON_PLANES`, `_SCORE_PLANES`), and the
+backend's pool threads fit their partitions' blocks at once. So each
+device has one budget (`_Budget`), half of what its device cache leaves of
+its memory, and a block is made and fitted only while it holds its bytes
+of that budget. Blocks are sized from N, k and the budget (`_row_block`)
+so that `_IN_FLIGHT` of them share it: at biobank width (N = 361,194) a
+block is a few hundred rows, at a few thousand samples the most,
+`_MAX_BLOCK`. Each row's arithmetic is the same in any
+block, so the results do not depend on the block size beyond the order
+in which a matrix product sums.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..utils import timer
 from .regression import _impute_mean_nan
 
 _F64 = torch.float64
@@ -126,80 +142,98 @@ def glm_newton_batch(G, Mmask, Cov, y, null_b, null_score, null_fisher,
     Returns (b (R,m), score (R,m), fisher (R,m,m), n_iter (R,), ll (R,),
     status (R,)) with m = k+1 and status in {1: converged, 2: exploded,
     3: hit max_iterations}. Matches stats/glmfit.logreg_fit / poisson_fit
-    per variant (see module docstring).
+    per variant (see module docstring). A `glm.newton` span with the
+    block's shape, its iterations and `row_iters`, the rows still active
+    summed over the iterations.
     """
     R, N = G.shape
     k = Cov.shape[1]
-    dev = G.device
-    Gi = _impute_mean_nan(G, Mmask)
+    with timer.span('glm.newton', rows=R, samples=N, covariates=k) as sp:
+        dev = G.device
+        Gi = _impute_mean_nan(G, Mmask)
 
-    # initial state (reference statgen.py:1069-1078 / :1820-1840): b_g = 0 so
-    # eta/mu are the shared null linear predictor; for poisson the prelude's
-    # mu uses sigmoid (the reference quirk), the loop's updates use exp.
-    eta0 = Cov @ null_b
-    mu0 = _sigmoid(eta0)
-    w0 = mu0 * (1.0 - mu0) if link == 'logistic' else mu0
-    r0 = y - mu0
-    # P[n, k*l] = Cov[n,k]·Cov[n,l]: the per-variant covariate Fisher block
-    # Σ_n w[r,n]·Cov[n,k]·Cov[n,l] as ONE (R,N)x(N,k²) matrix product
-    P = (Cov[:, :, None] * Cov[:, None, :]).reshape(N, k * k)
-    b = torch.cat([null_b.expand(R, k), torch.zeros((R, 1), dtype=_F64,
-                                                     device=dev)], dim=1)
-    score = torch.cat([null_score.expand(R, k), (Gi @ r0)[:, None]], dim=1)
-    f01 = (Gi * w0[None, :]) @ Cov                        # (R, k)
-    f11 = (w0[None, :] * Gi * Gi).sum(dim=1)              # (R,)
-    fisher = _fisher(null_fisher.expand(R, k, k), f01, f11)
-    mu = mu0.expand(R, N)
+        # initial state (reference statgen.py:1069-1078 / :1820-1840):
+        # b_g = 0 so eta/mu are the shared null linear predictor; for
+        # poisson the prelude's mu uses sigmoid (the reference quirk), the
+        # loop's updates use exp.
+        eta0 = Cov @ null_b
+        mu0 = _sigmoid(eta0)
+        w0 = mu0 * (1.0 - mu0) if link == 'logistic' else mu0
+        r0 = y - mu0
+        # P[n, k*l] = Cov[n,k]·Cov[n,l]: the per-variant covariate Fisher
+        # block Σ_n w[r,n]·Cov[n,k]·Cov[n,l] as ONE (R,N)x(N,k²) matrix
+        # product
+        P = (Cov[:, :, None] * Cov[:, None, :]).reshape(N, k * k)
+        b = torch.cat([null_b.expand(R, k), torch.zeros((R, 1), dtype=_F64,
+                                                         device=dev)], dim=1)
+        score = torch.cat([null_score.expand(R, k), (Gi @ r0)[:, None]], dim=1)
+        f01 = (Gi * w0[None, :]) @ Cov                        # (R, k)
+        f11 = (w0[None, :] * Gi * Gi).sum(dim=1)              # (R,)
+        fisher = _fisher(null_fisher.expand(R, k, k), f01, f11)
+        mu = mu0.expand(R, N)
 
-    def loglik(mu):
-        if link == 'logistic':
-            return _bernoulli_ll(y, mu)
-        return (y[None, :] * torch.log(mu) - mu).sum(dim=-1)
+        def loglik(mu):
+            if link == 'logistic':
+                return _bernoulli_ll(y, mu)
+            return (y[None, :] * torch.log(mu) - mu).sum(dim=-1)
 
-    status = torch.zeros(R, dtype=torch.int32, device=dev)
-    n_iter = torch.zeros(R, dtype=torch.int32, device=dev)
-    it = 1
-    while bool((status == _ACTIVE).any()):
-        active = status == _ACTIVE
-        delta = _chol_solve(fisher, score)                # (R, m)
-        finite = torch.isfinite(delta)
-        bad = ~finite.all(dim=1)
-        maxd = delta.abs().amax(dim=1)
-        status, n_iter, _, step = _freeze(status, n_iter, active, bad, maxd,
-                                          it, max_iterations, tolerance)
-        # ll is NOT computed here: mu freezes for stopped rows, so the
-        # post-loop loglik(mu_final) equals the value at stop time
-        delta = torch.where(finite, delta, 0.0)
-        b = torch.where(step[:, None], b + delta, b)
-        # recompute mu/score/fisher at the stepped b (full recompute: the
-        # null-block reuse happens only at initialization, as in reference)
-        eta = (Cov @ b[:, :k].T).T + Gi * b[:, k:k + 1]   # (R, N)
-        mu_new = _sigmoid(eta) if link == 'logistic' else torch.exp(eta)
-        w = mu_new * (1.0 - mu_new) if link == 'logistic' else mu_new
-        r = y[None, :] - mu_new
-        sc = torch.cat([r @ Cov, (r * Gi).sum(dim=1)[:, None]], dim=1)
-        fi = _fisher((w @ P).reshape(R, k, k), (w * Gi) @ Cov,
-                     (w * Gi * Gi).sum(dim=1))
-        mu = torch.where(step[:, None], mu_new, mu)
-        score = torch.where(step[:, None], sc, score)
-        fisher = torch.where(step[:, None, None], fi, fisher)
-        it += 1
-    ll = loglik(mu)          # mu is frozen at each row's stopping iteration
-    return b, score, fisher, n_iter, ll, status
+        status = torch.zeros(R, dtype=torch.int32, device=dev)
+        n_iter = torch.zeros(R, dtype=torch.int32, device=dev)
+        it, row_iters = 1, 0
+        while True:
+            active = status == _ACTIVE
+            n_active = int(active.sum())
+            if not n_active:
+                break
+            row_iters += n_active
+            delta = _chol_solve(fisher, score)                # (R, m)
+            finite = torch.isfinite(delta)
+            bad = ~finite.all(dim=1)
+            maxd = delta.abs().amax(dim=1)
+            status, n_iter, _, step = _freeze(status, n_iter, active, bad,
+                                              maxd, it, max_iterations,
+                                              tolerance)
+            # ll is NOT computed here: mu freezes for stopped rows, so the
+            # post-loop loglik(mu_final) equals the value at stop time
+            delta = torch.where(finite, delta, 0.0)
+            b = torch.where(step[:, None], b + delta, b)
+            # recompute mu/score/fisher at the stepped b (full recompute: the
+            # null-block reuse happens only at initialization, as in
+            # reference); each (R, N) plane is dropped once used, so that a
+            # block's peak stays within _NEWTON_PLANES
+            eta = (Cov @ b[:, :k].T).T + Gi * b[:, k:k + 1]   # (R, N)
+            mu_new = _sigmoid(eta) if link == 'logistic' else torch.exp(eta)
+            del eta
+            w = mu_new * (1.0 - mu_new) if link == 'logistic' else mu_new
+            r = y[None, :] - mu_new
+            sc = torch.cat([r @ Cov, (r * Gi).sum(dim=1)[:, None]], dim=1)
+            del r
+            fi = _fisher((w @ P).reshape(R, k, k), (w * Gi) @ Cov,
+                         (w * Gi * Gi).sum(dim=1))
+            del w
+            mu = torch.where(step[:, None], mu_new, mu)
+            del mu_new
+            score = torch.where(step[:, None], sc, score)
+            fisher = torch.where(step[:, None, None], fi, fisher)
+            it += 1
+        ll = loglik(mu)      # mu is frozen at each row's stopping iteration
+        sp.set(iterations=it - 1, row_iters=row_iters)
+        return b, score, fisher, n_iter, ll, status
 
 
 def wald_stats_batch(b, fisher):
     """se/z for the genotype coefficient from inv(fisher) at the fit
-    (reference wald_test, statgen.py:1136)."""
+    (reference wald_test, statgen.py:1136). A `glm.wald` span."""
     m = b.shape[1]
-    L = _chol(fisher)
-    eye = torch.eye(m, dtype=fisher.dtype, device=fisher.device).expand(
-        fisher.shape)
-    yv = torch.linalg.solve_triangular(L, eye, upper=False)
-    cov = torch.linalg.solve_triangular(L.mT, yv, upper=True)
-    se = torch.sqrt(cov[:, m - 1, m - 1])
-    z = b[:, m - 1] / se
-    return se, z
+    with timer.span('glm.wald', rows=b.shape[0]):
+        L = _chol(fisher)
+        eye = torch.eye(m, dtype=fisher.dtype, device=fisher.device).expand(
+            fisher.shape)
+        yv = torch.linalg.solve_triangular(L, eye, upper=False)
+        cov = torch.linalg.solve_triangular(L.mT, yv, upper=True)
+        se = torch.sqrt(cov[:, m - 1, m - 1])
+        z = b[:, m - 1] / se
+        return se, z
 
 
 def glm_score_batch(G, Mmask, Cov, y, null_b, null_score, null_fisher,
@@ -301,6 +335,87 @@ def _firth_row_block(N: int, M: int) -> int:
     return max(16, min(1024, (1 << 26) // max(N * M, 1)))
 
 
+# The (R, N) f64 planes that a block keeps live for each of its rows at the
+# peak of an iteration, with room for the bool mask and the allocator's
+# slack: glm_newton_batch holds the raw and the imputed x, mu and four
+# planes of the step at once; glm_score_batch the two x planes and three
+# of the statistic; firth_fit_batch 3 M + 8: the design, its product with
+# the inverse factor and that product's square (M planes each) and a few
+# more.
+_NEWTON_PLANES = 9
+_SCORE_PLANES = 5
+
+
+_MIN_BLOCK, _MAX_BLOCK = 16, 2048
+# blocks that share a device's budget at once: while one thread waits on
+# its iteration's sync, another launches its work. More blocks of fewer
+# rows hold more copies of P, fewer of more rows more planes at the peak;
+# on the card one, two or four take one time at biobank width.
+_IN_FLIGHT = 2
+
+
+class _Budget:
+    """The bytes of block workspace that the backend's pool threads hold
+    at once on one device. A block waits until its bytes fit beside those
+    held; a block larger than the whole capacity runs alone."""
+
+    def __init__(self):
+        self._held = 0
+        self._cond = threading.Condition()
+
+    @contextlib.contextmanager
+    def hold(self, nbytes: int, capacity: int):
+        with self._cond:
+            self._cond.wait_for(
+                lambda: not self._held or self._held + nbytes <= capacity)
+            self._held += nbytes
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._held -= nbytes
+                self._cond.notify_all()
+
+
+_budgets: dict = {}
+_budgets_lock = threading.Lock()
+
+
+def _budget(dev) -> _Budget:
+    """The one budget of device `dev`."""
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
+    with _budgets_lock:
+        return _budgets.setdefault(dev, _Budget())
+
+
+def _memory(dev) -> int:
+    """The device's memory in bytes: the card's, or the host's for the
+    CPU."""
+    if dev.type == 'cuda':
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES')
+
+
+def _capacity(dev) -> int:
+    """The device's budget for block workspace: half of what its device
+    cache (ops/devcache.py) leaves of its memory. The other half is for
+    the allocator's slack and whatever else the process keeps there."""
+    from . import devcache
+    return max(0, _memory(dev) - devcache.stats()['bytes']) // 2
+
+
+def _row_block(R: int, row_bytes: int, fixed_bytes: int, capacity: int,
+               most: int) -> int:
+    """Rows of each block of a partition of R rows: as many as let
+    `_IN_FLIGHT` blocks share `capacity`, within [_MIN_BLOCK, most], then
+    evened out: the n = ceil(R / rows) blocks take ceil(R / n) rows each,
+    the last the rest."""
+    rows = (capacity // _IN_FLIGHT - fixed_bytes) // max(row_bytes, 1)
+    rows = int(max(_MIN_BLOCK, min(most, rows)))
+    return -(-R // -(-R // rows)) if R else rows
+
+
 def _row_blocks(R: int, block: int):
     for s in range(0, R, block):
         yield s, min(s + block, R)
@@ -314,27 +429,51 @@ def _slice_cached_block(gz8, m8, s: int, e: int):
     return gz8[s:e].to(_F64), m8[s:e] > 0
 
 
-def _block_source(G, Mmask, cached: bool, block: int, device):
-    """Yield (Gb, Mb, n) blocks of `block` rows (fewer in the last) on
-    `device`; `cached` means (G, Mmask) are the device (gz8, m8) int8 pair
-    and slicing happens on the device, otherwise they are host arrays."""
-    for s, e in _row_blocks(int(G.shape[0]), block):
-        if cached:
-            Gb, Mb = _slice_cached_block(G, Mmask, s, e)
-        else:
-            Gb = torch.as_tensor(np.asarray(G[s:e], np.float64), device=device)
-            Mb = torch.as_tensor(np.asarray(Mmask[s:e], bool), device=device)
-        yield Gb, Mb, e - s
+def _block_source(G, Mmask, cached: bool, s: int, e: int, device):
+    """Rows [s, e) as (Gb, Mb) on `device`: `cached` means (G, Mmask) are
+    the device (gz8, m8) int8 pair and slicing happens on the device,
+    otherwise they are host arrays."""
+    if cached:
+        return _slice_cached_block(G, Mmask, s, e)
+    return (torch.as_tensor(np.asarray(G[s:e], np.float64), device=device),
+            torch.as_tensor(np.asarray(Mmask[s:e], bool), device=device))
+
+
+def _fit_blocks(G, Mmask, cached: bool, dev, row_bytes: int,
+                fixed_bytes: int, most: int, fit) -> list:
+    """fit(Gb, Mb, n) over the row blocks of (G, Mmask), each block made on
+    `dev` (`_block_source`) and fitted while it holds its bytes of the
+    device's budget (`row_bytes` a row and `fixed_bytes` a block); the
+    list of fit's results."""
+    R = int(G.shape[0])
+    capacity = _capacity(dev)
+    block = _row_block(R, row_bytes, fixed_bytes, capacity, most)
+    budget = _budget(dev)
+    out = []
+    for s, e in _row_blocks(R, block):
+        with budget.hold(fixed_bytes + row_bytes * (e - s), capacity):
+            Gb, Mb = _block_source(G, Mmask, cached, s, e, dev)
+            out.append(fit(Gb, Mb, e - s))
+            del Gb, Mb
+    return out
+
+
+def _newton_bytes(N: int, k: int) -> tuple:
+    """(bytes a row, bytes a block) of glm_newton_batch's workspace: its
+    (R, N) planes, and P = (N, k²) of the covariates' products."""
+    return _NEWTON_PLANES * N * 8, N * k * k * 8
 
 
 def _stacked_fetch(parts):
     """One device-to-host copy for a whole partition's results: each
     output's blocks concatenated, flattened and stacked into one f64 tensor
-    (one `torch.cat` and one `.cpu()`), then split on the host."""
+    (one `torch.cat` and one `.cpu()`, a `fetch` span with its bytes), then
+    split on the host."""
     cats = [torch.cat(p, dim=0) if len(p) > 1 else p[0] for p in parts]
     flat = torch.cat([c.reshape(c.shape[0], -1).to(_F64) for c in cats],
                      dim=1)
-    host = flat.cpu().numpy()
+    with timer.span('fetch', bytes=flat.nbytes, transfers=1):
+        host = flat.cpu().numpy()
     out, o = [], 0
     for c in cats:
         w = int(np.prod(c.shape[1:])) if c.ndim > 1 else 1
@@ -373,16 +512,18 @@ def _null_tensors(null_fit, device):
                  for f in ('b', 'score', 'fisher'))
 
 
-def _score_device(G, Mmask, Covd, yd, null_fit, link: str, block_rows: int,
+def _score_device(G, Mmask, Covd, yd, null_fit, link: str, most: int,
                   cached: bool, device):
     """The score test over blocks. Distinguishes the reference's two "no number"
     shapes: NaN inputs (all-missing / NaN dosage rows) flow through the
     reference's dgesv as NaN FLOATS (`nan_input`), while a singular finite
     fisher raises there and yields None (`valid`=False, `nan_input`=False)."""
     nb, nsc, nfi = _null_tensors(null_fit, device)
-    chis = [glm_score_batch(Gb, Mb, Covd, yd, nb, nsc, nfi, link)
-            for Gb, Mb, _ in _block_source(G, Mmask, cached, block_rows,
-                                           device)]
+    N = int(G.shape[1])
+    chis = _fit_blocks(
+        G, Mmask, cached, device, _SCORE_PLANES * N * 8, 0, most,
+        lambda Gb, Mb, n: glm_score_batch(Gb, Mb, Covd, yd, nb, nsc, nfi,
+                                          link))
     (chi2,) = _stacked_fetch([chis]) if chis else (np.zeros(0),)
     if cached:
         # int8 entries are always finite; only all-missing rows are NaN-input
@@ -394,10 +535,34 @@ def _score_device(G, Mmask, Covd, yd, null_fit, link: str, block_rows: int,
                 nan_input=nan_in)
 
 
+_NEWTON_OUT = ('b', 'score', 'fisher', 'n_iter', 'll', 'status')
+
+
+def _newton_device(G, Mmask, Covd, yd, null_fit, test: str,
+                   max_iterations: int, tolerance: float, link: str,
+                   most: int, cached: bool, dev, keep) -> dict:
+    """The wald/lrt Newton fits over blocks: the outputs of
+    glm_newton_batch named in `keep` and, for wald, se and z, fetched to
+    one host array each."""
+    nb, nsc, nfi = _null_tensors(null_fit, dev)
+    names = list(keep) + (['se', 'z'] if test == 'wald' else [])
+
+    def fit(Gb, Mb, n):
+        out = dict(zip(_NEWTON_OUT, glm_newton_batch(
+            Gb, Mb, Covd, yd, nb, nsc, nfi, max_iterations, tolerance,
+            link)))
+        if test == 'wald':
+            out['se'], out['z'] = wald_stats_batch(out['b'], out['fisher'])
+        return [out[n] for n in names]
+    row_bytes, fixed_bytes = _newton_bytes(int(G.shape[1]), Covd.shape[1])
+    return dict(zip(names, _stacked_fetch(list(zip(*_fit_blocks(
+        G, Mmask, cached, dev, row_bytes, fixed_bytes, most, fit))))))
+
+
 def logistic_rows_device(G, Mmask, Cov, y, null_fit, test: str,
                          max_iterations: int, tolerance: float,
-                         block_rows: int = 1024, cached: bool = False,
-                         device=None):
+                         block_rows: Optional[int] = None,
+                         cached: bool = False, device=None):
     """Run one logistic test over a (R, N) block; returns a dict of numpy
     per-variant arrays shaped like stats/glmfit's outputs (None-able fields
     as (value_array, valid_mask)).
@@ -405,13 +570,13 @@ def logistic_rows_device(G, Mmask, Cov, y, null_fit, test: str,
     `cached=True` means (G, Mmask) are the device-resident int8 (gz8, m8)
     pair from ops/devcache.py, the same buffers linear_regression_rows
     stages, so a warm logistic call moves nothing host-to-device and does
-    one stacked device-to-host copy per partition; blocks grow to 2048 rows
-    there. Otherwise (G, Mmask) are host arrays, copied block by block to
-    `device` (default: the CPU)."""
+    one stacked device-to-host copy per partition. Otherwise (G, Mmask) are
+    host arrays, copied block by block to `device` (default: the CPU).
+    Blocks are sized from N, k and the device's budget (module doc);
+    `block_rows` caps them."""
     dev = _device_of(G, device)
     N = int(G.shape[1])
-    if cached and block_rows == 1024:
-        block_rows = 2048
+    most = block_rows or _MAX_BLOCK
     k = Cov.shape[1]
     Covd = torch.as_tensor(np.asarray(Cov, np.float64), device=dev)
     yd = torch.as_tensor(np.asarray(y, np.float64), device=dev)
@@ -419,16 +584,12 @@ def logistic_rows_device(G, Mmask, Cov, y, null_fit, test: str,
 
     if test == 'score':
         return _score_device(G, Mmask, Covd, yd, null_fit, 'logistic',
-                             block_rows, cached, dev)
+                             most, cached, dev)
 
-    nb, nsc, nfi = _null_tensors(null_fit, dev)
     if test == 'firth':
-        # fb stays at the workspace-bounded size even when cached: the
-        # (R, M, N) triangular-solve workspace sits next to the resident
-        # entry cache
-        fb = _firth_row_block(N, k + 1)
-        parts = [[] for _ in range(8)]
-        for Gb, Mb, n in _block_source(G, Mmask, cached, fb, dev):
+        nb = _null_tensors(null_fit, dev)[0]
+
+        def fit(Gb, Mb, n):
             Gid = _impute_mean_nan(Gb, Mb)
             b_n, it_n, ll_n, st_n = firth_fit_batch(
                 Gid, Covd, yd, nb.expand(n, k), k, max_iterations, tolerance)
@@ -437,66 +598,40 @@ def logistic_rows_device(G, Mmask, Cov, y, null_fit, test: str,
             # are masked by the caller
             b_f0 = torch.cat([b_n, torch.zeros((n, 1), dtype=_F64,
                                                device=dev)], dim=1)
-            b_f, it_f, ll_f, st_f = firth_fit_batch(
+            return (b_n, it_n, ll_n, st_n) + firth_fit_batch(
                 Gid, Covd, yd, b_f0, k + 1, max_iterations, tolerance)
-            for lst, arr in zip(parts, (b_n, it_n, ll_n, st_n,
-                                        b_f, it_f, ll_f, st_f)):
-                lst.append(arr)
+        # the block stays at the workspace-bounded size even when cached:
+        # the (R, M, N) triangular-solve workspace sits next to the
+        # resident entry cache
+        blocks = _fit_blocks(G, Mmask, cached, dev,
+                             (3 * (k + 1) + 8) * N * 8, 0,
+                             min(most, _firth_row_block(N, k + 1)), fit)
         (out['null_b'], out['null_n_iter'], out['null_ll'],
          out['null_status'], out['full_b'], out['full_n_iter'],
-         out['full_ll'], out['full_status']) = _stacked_fetch(parts)
+         out['full_ll'], out['full_status']) = _stacked_fetch(
+             list(zip(*blocks)))
         return out
 
     # wald / lrt: full Newton fit per variant
-    n_out = 6 if test == 'wald' else 4
-    parts = [[] for _ in range(n_out)]
-    for Gb, Mb, _ in _block_source(G, Mmask, cached, block_rows, dev):
-        b, sc, fi, it, ll, st = glm_newton_batch(
-            Gb, Mb, Covd, yd, nb, nsc, nfi, max_iterations, tolerance,
-            'logistic')
-        arrs = [b, it, ll, st]
-        if test == 'wald':
-            arrs += list(wald_stats_batch(b, fi))
-        for lst, arr in zip(parts, arrs):
-            lst.append(arr)
-    fetched = _stacked_fetch(parts)
-    out['b'], out['n_iter'], out['ll'], out['status'] = fetched[:4]
-    if test == 'wald':
-        out['se'], out['z'] = fetched[4], fetched[5]
-    return out
+    return _newton_device(G, Mmask, Covd, yd, null_fit, test,
+                          max_iterations, tolerance, 'logistic', most,
+                          cached, dev, ('b', 'n_iter', 'll', 'status'))
 
 
 def poisson_rows_device(G, Mmask, Cov, y, null_fit, test: str,
                         max_iterations: int, tolerance: float,
-                        block_rows: int = 1024, cached: bool = False,
-                        device=None):
+                        block_rows: Optional[int] = None,
+                        cached: bool = False, device=None):
     """Poisson wald/lrt/score on the device (reference
-    _lowered_poisson_regression_rows, statgen.py:1747). `cached` and
-    `device` as in logistic_rows_device."""
+    _lowered_poisson_regression_rows, statgen.py:1747). `block_rows`,
+    `cached` and `device` as in logistic_rows_device."""
     dev = _device_of(G, device)
+    most = block_rows or _MAX_BLOCK
     Covd = torch.as_tensor(np.asarray(Cov, np.float64), device=dev)
     yd = torch.as_tensor(np.asarray(y, np.float64), device=dev)
-    out = {}
     if test == 'score':
         return _score_device(G, Mmask, Covd, yd, null_fit, 'poisson',
-                             block_rows, cached, dev)
-    if cached and block_rows == 1024:
-        block_rows = 2048
-    nb, nsc, nfi = _null_tensors(null_fit, dev)
-    n_out = 8 if test == 'wald' else 6
-    parts = [[] for _ in range(n_out)]
-    for Gb, Mb, _ in _block_source(G, Mmask, cached, block_rows, dev):
-        b, sc, fi, it, ll, st = glm_newton_batch(
-            Gb, Mb, Covd, yd, nb, nsc, nfi, max_iterations, tolerance,
-            'poisson')
-        arrs = [b, sc, fi, it, ll, st]
-        if test == 'wald':
-            arrs += list(wald_stats_batch(b, fi))
-        for lst, arr in zip(parts, arrs):
-            lst.append(arr)
-    fetched = _stacked_fetch(parts)
-    (out['b'], out['score'], out['fisher'], out['n_iter'], out['ll'],
-     out['status']) = fetched[:6]
-    if test == 'wald':
-        out['se'], out['z'] = fetched[6], fetched[7]
-    return out
+                             most, cached, dev)
+    return _newton_device(G, Mmask, Covd, yd, null_fit, test,
+                          max_iterations, tolerance, 'poisson', most, cached,
+                          dev, _NEWTON_OUT)
