@@ -820,8 +820,8 @@ def phase_gwas(hl, mt, n_variants, nalts, misses, cols_np):
         f'cold {cold:.1f} v/s, warm {warm[0]:.1f} and {warm[1]:.1f} v/s, '
         f'host-materialized {host:.1f} v/s; beta/se/t of {CHECK_ROWS} rows '
         f'match numpy f64 OLS at rtol 1e-10; devcache {devcache.stats()}')
-    # K7: a pair of launches in the cold call, none in a warm one (its
-    # constants hit the cache: the phenotype does not change)
+    # K7: a pair of launches in every call (the column plane is made on
+    # the card anew each call; no cache holds its constants)
     per_call = {'hail_unpack_gt_2bit': cold_launches['hail_unpack_gt_2bit'],
                 'hail_linreg_exact_pass':
                     warm_launches['hail_linreg_exact_pass'],

@@ -439,24 +439,29 @@ def _finish_stats_packed(packed_out, P, dof):
                 standard_error=se, t_stat=t, p_value=p)
 
 
-def exact_consts(Q: np.ndarray, Ys: np.ndarray, Qty: np.ndarray,
-                 yyp: np.ndarray, dof, device):
+def _f64_on(a, device) -> torch.Tensor:
+    """A host array or a tensor as a contiguous f64 tensor on `device`."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a, np.float64))
+    return a.to(device, torch.float64).contiguous()
+
+
+def exact_consts(Q, Ys, Qty, yyp, dof, device):
     """The device constants of one phenotype group: (W, scales, Qty, yyp,
     dof), W the `ExactOperand` of the digit planes with the kernel's layout
-    built here once, the next three f64 tensors, dof a float. Q and Ys go
-    to the device as f64 and K7 makes the planes there (`digit_operand`)."""
+    built here once, the next three f64 tensors, dof a float. Q, Ys, Qty
+    and yyp are host arrays or tensors already on `device` (then nothing
+    of theirs is copied); Q and Ys go to the device as f64 and K7 makes
+    the planes there (`digit_operand`)."""
     with timer.span('consts.planes'):
-        W, scales = digit_operand(*(
-            torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(device)
-            for a in (Q, Ys)))
-    Qty = np.asarray(Qty, np.float64)
-    yyp = np.asarray(yyp, np.float64)
-    with timer.span('consts.copy', bytes=(scales.nbytes + Qty.nbytes
-                                          + yyp.nbytes)):
+        W, scales = digit_operand(_f64_on(Q, device), _f64_on(Ys, device))
+    copied = scales.nbytes + sum(a.nbytes for a in (Qty, yyp)
+                                 if not isinstance(a, torch.Tensor))
+    with timer.span('consts.copy', bytes=copied):
         return (W,
                 torch.from_numpy(scales).to(device),
-                torch.as_tensor(Qty, device=device),
-                torch.as_tensor(yyp, device=device),
+                _f64_on(Qty, device),
+                _f64_on(yyp, device),
                 float(dof))
 
 

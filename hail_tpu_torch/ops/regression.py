@@ -82,7 +82,7 @@ def linreg_stats(G: np.ndarray, missing: np.ndarray, sqrtw, Q: np.ndarray,
         sqrtw = np.ones(G.shape[1])
 
     def f64(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
 
     out = block(f64(G), torch.as_tensor(np.asarray(missing, bool),
                                         device=device),

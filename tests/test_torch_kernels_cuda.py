@@ -900,7 +900,9 @@ def test_digit_planes_edge_shapes(dev, N, k, P):
 
 def test_exact_consts_launch_k7_once(dev):
     """`exact_consts` on the card makes its operand with K7: one launch of
-    each entry point a call, and none from a hit of the constants' cache."""
+    each entry point a call, and none from a hit of the constants' cache
+    of host arrays; tensors already on the card make no entry and launch
+    K7 at every call."""
     from hail_tpu_torch.methods import statgen
     from hail_tpu_torch.ops import _kernels, linreg_i8 as li
     Q, Ys = digit_plane_case('kg')
@@ -919,6 +921,15 @@ def test_exact_consts_launch_k7_once(dev):
     b = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 2000, dev)
     assert b is a
     assert [_kernels.launches[n] - b_ for n, b_ in zip(names, before)] == [2, 2]
+    # the card's column plane: tensors on the card are no cache entry, and
+    # each call makes its operand anew
+    Qd, Ysd, Qtyd, yypd = (torch.from_numpy(v).to(dev)
+                           for v in (Q, Ys, Qty, yyp))
+    a = statgen._exact_consts_cached(Qd, Ysd, Qtyd, yypd, 2000, dev)
+    b = statgen._exact_consts_cached(Qd, Ysd, Qtyd, yypd, 2000, dev)
+    assert b is not a and len(statgen._EXACT_CONSTS_CACHE) == 1
+    assert torch.equal(a[0].WT, W.WT) and torch.equal(b[0].WT, W.WT)
+    assert [_kernels.launches[n] - b_ for n, b_ in zip(names, before)] == [4, 4]
 
 
 def test_digit_planes_reject_bad_input(dev):
@@ -977,3 +988,70 @@ def test_gwas_through_k7_equals_host_planes(dev, monkeypatch):
     for f in fields:
         assert k7[f].shape == (192,) and np.isfinite(k7[f]).all(), f
         assert np.array_equal(k7[f].view(np.int64), host[f].view(np.int64)), f
+
+
+@pytest.mark.parametrize('case', ['all_kept', 'missing_pheno',
+                                  'intercept_only', 'int_x'])
+def test_gwas_column_plane_on_the_card_equals_the_host_qr(dev, monkeypatch,
+                                                           case):
+    """`linear_regression_rows` on the card makes its column plane there
+    (`statgen._column_plane_device`: the QR, Qty and yyp in f64 on the
+    card, handed to K7): every field equals the host-QR route's (numpy's
+    QR, the constants keyed and copied from host arrays) at rtol 1e-10,
+    with every sample kept, with a phenotype missing for some samples, with
+    the intercept alone (k = 1), and from an integer entry field.
+    `linreg.qr` records `on_card` True, no `consts.key` span is recorded,
+    and K7's two entry points launch once a call."""
+    import hail_tpu_torch as hl
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.ops import _kernels
+    from hail_tpu_torch.utils import timer
+    from test_torch_slice import build_mt
+    names = ('hail_digit_amax', 'hail_digit_planes')
+    fields = ('n', 'sum_x', 'y_transpose_x', 'beta', 'standard_error',
+              't_stat', 'p_value')
+    hl.init(device='cuda', quiet=True)
+    try:
+        mt = build_mt('hail_tpu_torch', seed=9, n_samples=1003, rows=64,
+                      parts=3)
+        y = mt.p2 if case == 'missing_pheno' else mt.pheno
+        x = mt.X if case == 'int_x' else mt.GT.n_alt_alleles()
+        covs = [1.0] if case == 'intercept_only' else [1.0, mt.c0, mt.c1]
+
+        def stats():
+            statgen._EXACT_CONSTS_CACHE.clear()
+            before = [_kernels.launches[n] for n in names]
+            timer.clear()
+            with timer.recording():
+                res = hl.linear_regression_rows(y=y, x=x, covariates=covs)
+                out = {f: np.concatenate([
+                    np.asarray(b.columns[f].values, np.float64)
+                    for b in res._stage.collect_batches()]) for f in fields}
+            spans = timer.spans()
+            timer.clear()
+            return out, spans, [_kernels.launches[n] - b
+                                for n, b in zip(names, before)]
+
+        card, spans, launches = stats()
+
+        def host_qr(Cs, Ys, device):
+            Q = np.linalg.qr(Cs)[0]
+            Qty = Q.T @ Ys
+            return Q, Ys, Qty, (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+        monkeypatch.setattr(statgen, '_column_plane_device', host_qr)
+        host, host_spans, host_launches = stats()
+    finally:
+        hl.stop()
+    n_kept = 1003 if case != 'missing_pheno' else int(card['n'][0])
+    assert case != 'missing_pheno' or n_kept < 1003
+    assert [(s.attrs['on_card'], s.attrs['rows'], s.attrs['cols'])
+            for s in spans if s.name == 'linreg.qr'] == [
+        (True, n_kept, len(covs))]
+    assert not [s for s in spans if s.name == 'consts.key']
+    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] \
+        == [False]
+    assert launches == host_launches == [1, 1]
+    assert [s for s in host_spans if s.name == 'consts.key']
+    for f in fields:
+        assert card[f].shape == (192,) and np.isfinite(card[f]).all(), f
+        np.testing.assert_allclose(card[f], host[f], rtol=1e-10, err_msg=f)

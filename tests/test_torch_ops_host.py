@@ -333,3 +333,79 @@ def test_exact_consts_cache_keys_on_shape():
     assert b is not a
     assert tuple(a[0].Wdig.shape) == (12, 7 * 4)
     assert tuple(b[0].Wdig.shape) == (6, 7 * 8)
+
+
+def _host_column_plane(Cs, Ys):
+    """The numpy route of `linear_regression_rows`' column plane."""
+    Q = np.linalg.qr(Cs)[0] if Cs.shape[1] else np.zeros((Cs.shape[0], 0))
+    Qty = Q.T @ Ys
+    return Q, Qty, (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
+
+
+@pytest.mark.parametrize('N,k,P', [(64, 0, 2), (300, 1, 1), (257, 3, 2),
+                                   (1003, 26, 16)])
+def test_column_plane_device_matches_the_host_route(N, k, P):
+    """`statgen._column_plane_device` on CPU tensors (torch.linalg.qr, f64)
+    gives the numpy route's projection and yyp, and the statistics made
+    from its tensors (`exact_consts` on tensors: `_digit_planes_plain`,
+    then the exact pass, or the f64 route's `linreg_stats`) equal the
+    numpy route's at rtol 1e-10; k = 0 has no QR at all."""
+    from hail_tpu_torch.methods.statgen import _column_plane_device
+    from hail_tpu_torch.ops import linreg_i8 as li
+    from hail_tpu_torch.ops.regression import linreg_stats
+    rng = np.random.default_rng(N + k + P)
+    Cs = np.concatenate([np.ones((N, min(k, 1))),
+                         rng.normal(size=(N, max(k - 1, 0)))], axis=1)
+    Ys = rng.normal(size=(N, P))
+    Qh, Qtyh, yyph = _host_column_plane(Cs, Ys)
+    Q, Ysd, Qty, yyp = _column_plane_device(Cs, Ys, 'cpu')
+    for t in (Q, Ysd, Qty, yyp):
+        assert isinstance(t, torch.Tensor) and t.dtype == torch.float64
+    assert Q.is_contiguous() and tuple(Q.shape) == (N, k)
+    assert tuple(Qty.shape) == (k, P) and tuple(yyp.shape) == (P,)
+    assert np.array_equal(Ysd.numpy(), Ys)
+    # Q's columns may differ from LAPACK's in sign: compare QQᵀ·Ys
+    np.testing.assert_allclose((Q @ Qty).numpy(), Qh @ Qtyh, rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(yyp.numpy(), yyph, rtol=1e-10)
+    R, d = 40, N - k - 1
+    G8 = rng.integers(0, 3, size=(R, N)).astype(np.int8)
+    G8[rng.random((R, N)) < 0.05] = -1
+    G8 = torch.from_numpy(G8)
+    want = li._linreg_block_i8_exact_packed(
+        G8, *li.exact_consts(Qh, Ys, Qtyh, yyph, d, 'cpu'), k)
+    got = li._linreg_block_i8_exact_packed(
+        G8, *li.exact_consts(Q, Ysd, Qty, yyp, d, 'cpu'), k)
+    assert np.isfinite(want.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10)
+    G, M = G8.numpy().astype(np.float64), G8.numpy() < 0
+    want = linreg_stats(G, M, None, Qh, Ys, Qtyh, yyph, d, 'cpu')
+    got = linreg_stats(G, M, None, Q, Ysd, Qty, yyp, d, 'cpu')
+    for f, v in want.items():
+        np.testing.assert_allclose(got[f], v, rtol=1e-10, err_msg=f)
+
+
+def test_exact_consts_of_tensors_bypass_the_cache():
+    """Tensors already on the device (the card's column plane) are made
+    into constants directly: no content key, no cache entry, `hit` False,
+    nothing of Qty and yyp copied."""
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.utils import timer
+    rng = np.random.default_rng(7)
+    Q, Ys, Qty, yyp = statgen._column_plane_device(
+        np.concatenate([np.ones((50, 1)), rng.normal(size=(50, 2))], axis=1),
+        rng.normal(size=(50, 2)), 'cpu')
+    statgen._EXACT_CONSTS_CACHE.clear()
+    timer.clear()
+    with timer.recording(), timer.action():
+        a = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 46, 'cpu')
+        b = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 46, 'cpu')
+    spans = timer.spans()
+    timer.clear()
+    assert b is not a and not statgen._EXACT_CONSTS_CACHE
+    assert torch.equal(a[0].WT, b[0].WT) and a[2] is Qty and a[3] is yyp
+    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] \
+        == [False, False]
+    assert not [s for s in spans if s.name == 'consts.key']
+    assert [s.attrs['bytes'] for s in spans if s.name == 'consts.copy'] \
+        == [a[1].nbytes] * 2

@@ -131,6 +131,25 @@ def test_fetch_counts_the_bytes_fetched(mt):
     assert sum(a.size for a in two) == rows * 2
 
 
+def test_the_cpu_keeps_the_host_column_plane_and_its_cache(mt):
+    """On the CPU the column plane stays on the host (`linreg.qr` records
+    `on_card` False) and the constants of host arrays keep their content
+    key: a repeated phenotype hits the cache."""
+    from hail_tpu_torch.methods import statgen
+    statgen._EXACT_CONSTS_CACHE.clear()
+    with timer.recording():
+        first, again = _call(mt, mt.pheno), _call(mt, mt.pheno)
+    spans = timer.spans()
+    assert [(s.attrs['on_card'], s.attrs['rows'], s.attrs['cols'])
+            for s in spans if s.name == 'linreg.qr'] == \
+        [(False, N_SAMPLES, 2)] * 2
+    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] == \
+        [False, True]
+    assert len([s for s in spans if s.name == 'consts.key']) == 2
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_nothing_is_recorded_with_recording_off(mt):
     _calls(mt)
     assert timer.spans() == []
