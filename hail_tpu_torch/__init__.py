@@ -1,10 +1,11 @@
 """hail_tpu_torch: the PyTorch / CUDA port of hail_tpu (import as
 `import hail_tpu_torch as hl`; `hl.init(device='cuda')` on an NVIDIA card).
 
-The host plane (types, expressions, Table, MatrixTable) is the reference's,
-copied by `copy_host_plane.py`; the methods exported below run their device
-work in torch and in hand-written CUDA kernels (csrc/). Only ported methods
-are exported.
+The host plane (types, expressions, Table, MatrixTable, I/O, the services)
+is numpy host code that began as the reference's and is this package's own:
+its imports name this package, and it reaches no jax. The methods exported
+below run their device work in torch and in hand-written CUDA kernels
+(csrc/). Only ported methods are exported.
 """
 
 from . import types as _types_mod

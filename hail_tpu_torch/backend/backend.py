@@ -112,6 +112,7 @@ class Backend:
         "use_device_sort": ("HAIL_TPU_USE_DEVICE_SORT", "1"),
         "max_partition_attempts": ("HAIL_TPU_MAX_PARTITION_ATTEMPTS", "3"),
         "partition_cache_bytes": ("HAIL_TPU_PARTITION_CACHE_BYTES", str(512 * 1024 * 1024)),
+        # sized for the H100's 80 GB (ops/devcache.py holds the same default)
         "device_cache_bytes": ("HAIL_TPU_DEVICE_CACHE_BYTES", str(16 * 1024 * 1024 * 1024)),
     }
 
@@ -131,6 +132,7 @@ class Backend:
         part_s: List[float] = []
         from ..utils import timer
         with timer.action(), timer.span('stage', partitions=len(contexts)):
+            # each partition's pool thread runs in the stage's span context
             stage_ctx = timer.context()
             index = ({id(c): i for i, c in enumerate(contexts)}
                      if stage_ctx.rec else {})

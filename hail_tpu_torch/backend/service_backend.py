@@ -82,6 +82,7 @@ class ServiceBackend(Backend):
         self.client = BatchServiceClient(url)
         self.n_max_attempts = n_max_attempts
         self.inline_threshold = inline_threshold
+        # bounds `_collect`'s wait for a stage (hl.init(stage_timeout=...))
         self.stage_timeout = stage_timeout
         self.billing_project = billing_project
         self._staging_root = staging_dir or tempfile.mkdtemp(prefix='hail_tpu_qob_')
@@ -137,6 +138,7 @@ class ServiceBackend(Backend):
                     'command': [sys.executable, '-m',
                                 'hail_tpu_torch.backend.qob_worker',
                                 fn_path, ctx_path, out_path],
+                    # the driver keeps the device: the workers never see it
                     'env': {'CUDA_VISIBLE_DEVICES': ''},
                 },
             })

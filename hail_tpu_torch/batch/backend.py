@@ -47,6 +47,7 @@ class BatchRun:
         self._scratch = scratch
 
     def status(self) -> dict:
+        # 'Error' is the service's state of a job killed at its timeout
         n_failed = sum(1 for s in self._job_states.values()
                        if s in ('Failed', 'Error'))
         state = 'failure' if n_failed else 'success'
@@ -221,6 +222,7 @@ class LocalBackend(Backend):
                     script = '\n'.join(['set -e'] + [substitute(c) for c in j._commands])
                     env = dict(os.environ)
                     env.update(j._env)
+                    # a job that outlives its Job.timeout is killed here
                     r = subprocess.run([j._shell, '-c', script], capture_output=True,
                                        text=True, env=env, cwd=scratch,
                                        timeout=getattr(j, '_timeout', None))
@@ -420,6 +422,7 @@ class ServiceBackend(Backend):
                 raise NotImplementedError(type(j).__name__)
             bunch.append({
                 'job_id': i,
+                # the service's worker kills the job at its Job.timeout
                 'spec': {'command': script, 'env': env,
                          'timeout': getattr(j, '_timeout', None)},
                 'parent_ids': [job_ids[d._uid] for d in j._all_dependencies()
@@ -436,6 +439,7 @@ class ServiceBackend(Backend):
         if not wait:
             return BatchRun(batch, {j._uid: 'Running' for j in batch._jobs},
                             {}, scratch)
+        # run(timeout=...) bounds the wait for the batch
         client.wait(bid, timeout=kwargs.get('timeout', 300.0))
         states: Dict[str, str] = {}
         errors: Dict[str, str] = {}

@@ -135,6 +135,7 @@ _VALID_CPUS_MCPU = {250, 500, 1000, 2000, 4000, 8000, 16000}
 
 
 def validate_job_resources(jid: Any, resources: Any) -> None:
+    # the alias package's parsers, copied here: `hailtop` imports jax
     from .parse import (
         CPU_REGEX, MEMORY_REGEX, STORAGE_REGEX, parse_cpu_in_mcpu,
         parse_memory_in_bytes, parse_storage_in_bytes)

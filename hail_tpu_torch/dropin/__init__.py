@@ -12,8 +12,8 @@ or, in a process that has imported neither `hail` nor `hailtop` yet:
 This directory holds the port's own copies of the alias packages `hail`
 (with its submodule aliases, the harness imports and the explanatory
 `hail.backend.spark_backend` stub), `hailtop` (with `batch_client`),
-`pyspark` and `avro` (made by `copy_host_plane.py` from the repo's alias
-packages, which forward to `hail_tpu`). `install` puts it first on
+`pyspark` and `avro` (the repo's alias packages, which forward to
+`hail_tpu`, made to forward to this package). `install` puts it first on
 `sys.path`, ahead of those. A pipeline's `hl.init()` that names no device
 runs on the card, as the port's entry points do, unless `device` says
 otherwise.

@@ -27,6 +27,7 @@ from ..ir.columns import (Batch, Column, DenseArrayColumn, LocusColumn,
 
 FORMAT_VERSION = 1
 
+# object columns pickle classes by module: each package reads the other's
 _PORT, _REF = 'hail_tpu_torch', 'hail_tpu'
 
 

@@ -55,6 +55,7 @@ def nbytes_of(obj: Any) -> int:
         if getattr(c, '_build', None) is not None:
             # an unbuilt DeferredObjectColumn: sized as an object array,
             # not built (reading `values` would build it)
+            # (else every memoized partition builds the GLM fit structs)
             seen_bytes += int(np.prod(c.shape)) * 64
             continue
         fields = getattr(c, 'fields', None)

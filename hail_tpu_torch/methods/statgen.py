@@ -374,49 +374,24 @@ def _result_table_from_rows(mt: MatrixTable, per_part_fn, out_fields: List[Tuple
 # linear regression
 # ---------------------------------------------------------------------------
 
-_EXACT_CONSTS_CACHE: 'dict' = {}
-
-
 def _exact_consts_cached(Q, Ys, Qty, yyp, d, device):
-    """Device-resident (W digit planes, scales, Qty, yyp, dof). From host
-    arrays they are keyed by content, shape and dtype of each operand, and
-    the device — repeated calls with the same covariates/phenotypes reuse
-    the buffers instead of re-making and re-shipping them. (The reference
-    keys on the bytes alone, so two arrays of equal bytes but other shapes
-    would collide.) Tensors already on the device (the card's column
-    plane, `_column_plane_device`) are made into constants directly: a key
-    would hash them on the host, and K7 remakes the planes in less time."""
-    import hashlib
+    """The exact route's device constants (W digit planes, scales, Qty,
+    yyp, dof) of one phenotype group, made at every call from its column
+    plane (`_column_plane_device`), inside the `linreg.consts` span. Nothing
+    is cached: the name is the reference's, and the benchmark's probes and
+    the surface test name it."""
     from ..ops.linreg_i8 import exact_consts
-    with timer.span('linreg.consts') as sp:
-        if isinstance(Q, torch.Tensor):
-            sp.set(hit=False)
-            return exact_consts(Q, Ys, Qty, yyp, d, device)
-        with timer.span('consts.key'):
-            h = hashlib.blake2b(digest_size=16)
-            for a in (Q, Ys, Qty, yyp):
-                a = np.ascontiguousarray(a)
-                h.update(repr((a.shape, a.dtype.str)).encode())
-                h.update(a)
-            h.update(repr((float(d), str(device))).encode())
-            key = h.hexdigest()
-        hit = _EXACT_CONSTS_CACHE.get(key)
-        sp.set(hit=hit is not None)
-        if hit is not None:
-            return hit
-        consts = exact_consts(Q, Ys, Qty, yyp, d, device)
-        if len(_EXACT_CONSTS_CACHE) >= 16:
-            _EXACT_CONSTS_CACHE.pop(next(iter(_EXACT_CONSTS_CACHE)))
-        _EXACT_CONSTS_CACHE[key] = consts
-        return consts
+    with timer.span('linreg.consts'):
+        return exact_consts(Q, Ys, Qty, yyp, d, device)
 
 
 def _column_plane_device(Cs, Ys, device):
-    """The column plane of one phenotype group on `device`: Cs (n, k) and
-    Ys (n, P) host f64 are copied there once, Q is `torch.linalg.qr`'s
-    (on a card cuSOLVER's Householder geqrf/orgqr, LAPACK's algorithm; Q
-    differs from numpy's in roundoff and column signs, which the
-    statistics do not see: they depend on QQᵀ), and Qty = QᵀYs and
+    """The column plane of one phenotype group on the session's `device`,
+    on every route: Cs (n, k) and Ys (n, P) host f64 go there once, Q is
+    `torch.linalg.qr`'s (on a card cuSOLVER's Householder geqrf/orgqr,
+    LAPACK's algorithm; Q differs from numpy's in roundoff and column
+    signs, which the statistics do not see: they depend on QQᵀ), and
+    Qty = QᵀYs and
     yyp = |Ys|² - |Qty|² per phenotype are formed there. Returns (Q, Ys,
     Qty, yyp) f64 tensors on `device`, Q contiguous as K7 reads it; on a
     card they are ready when this returns, so that a span around it holds
@@ -500,10 +475,7 @@ def _linear_regression_rows(call, y, x, covariates, block_size, pass_through,
                       else _eval_col_f64(mt, to_expr(weight_list[gi])))
                      for gi, g in enumerate(y_groups)]
     k = Cov.shape[1]
-    # the exact route (integer x, no weights, one group) on a card makes
-    # its column plane there: K7 reads Q and Ys on the card in any case
     use_exact = weight_list is None and xe.dtype in (ht.tint32, ht.tint64)
-    on_card = use_exact and not is_chained and device.type == 'cuda'
     groups = []
     for ys, w in evaluated:
         Y = np.stack([v for v, _ in ys], axis=1)         # (N, P)
@@ -521,18 +493,8 @@ def _linear_regression_rows(call, y, x, covariates, block_size, pass_through,
         swk = sw[idx] if sw is not None else None
         Ys = Yk * swk[:, None] if swk is not None else Yk
         Cs = Ck * swk[:, None] if swk is not None else Ck
-        if on_card:
-            with timer.span('linreg.qr', rows=n_g, cols=k, on_card=True):
-                Qg, Ys, Qty, yyp = _column_plane_device(Cs, Ys, device)
-        else:
-            if k > 0:
-                with timer.span('linreg.qr', rows=n_g, cols=k,
-                                on_card=False):
-                    Qg, _ = np.linalg.qr(Cs)             # (n_g, k)
-            else:
-                Qg = np.zeros((n_g, 0))
-            Qty = Qg.T @ Ys                              # (k, P)
-            yyp = (Ys * Ys).sum(axis=0) - (Qty * Qty).sum(axis=0)  # (P,)
+        with timer.span('linreg.qr', rows=n_g, cols=k):
+            Qg, Ys, Qty, yyp = _column_plane_device(Cs, Ys, device)
         groups.append(dict(idx=idx, sw=swk, Q=Qg, Ys=Ys, Qty=Qty, yyp=yyp,
                            n=n_g, d=n_g - k - 1, P=Y.shape[1]))
     call.set(k=k, P=sum(g['P'] for g in groups), N=groups[0]['n'])
@@ -601,8 +563,7 @@ def _linear_regression_rows(call, y, x, covariates, block_size, pass_through,
     def _group_result(G, M, grp):
         idx = grp['idx']
         return linreg_stats(G[:, idx], M[:, idx], grp['sw'], grp['Q'],
-                            grp['Ys'], grp['Qty'], grp['yyp'], grp['d'],
-                            device)
+                            grp['Ys'], grp['Qty'], grp['yyp'], grp['d'])
 
     def _deferred_scalar_stats(slot, R, grp):
         """Single-phenotype result columns deferring the d2h: each column
@@ -619,14 +580,11 @@ def _linear_regression_rows(call, y, x, covariates, block_size, pass_through,
                 lambda a, j=j: (a[:, j].astype(np.float64), None))
 
         def p_xf(a):
-            import scipy.stats as st
+            from ..ops.regression import t_pvalues
             t = a[:, 1 + 3 * P]
             with timer.carried(ctx), \
-                    timer.span('linreg.pvalues', rows=t.shape[0]), \
-                    np.errstate(all='ignore'):
-                p = (2 * st.t.sf(np.abs(t), dof) if dof > 0
-                     else np.full_like(t, np.nan))
-            return p.astype(np.float64), None
+                    timer.span('linreg.pvalues', rows=t.shape[0]):
+                return t_pvalues(t, dof), None
 
         return {
             'n': PrimitiveColumn(ht.tint32, np.full(R, grp['n'], np.int32)),

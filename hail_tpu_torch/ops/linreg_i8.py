@@ -330,24 +330,25 @@ def exact_pass(gz8: torch.Tensor, m8: torch.Tensor, W: ExactOperand):
     return GWd, MWd, nmiss, s, ss
 
 
-def _exact_core(gz8, m8, W, scales, Qty, yyp, d, k, planes=_EXACT_PLANES):
+def _exact_core(gz8, m8, W, scales, Qty, yyp, d, k):
     """gz8 (R,N) int8 zero-at-missing genotypes, m8 (R,N) int8 missing
     indicators; the group's constants as `exact_consts` returns them (W an
     `ExactOperand`, the others f64). Returns (sum_x, ytx, beta, se, t) f64."""
     partials = exact_pass(gz8, m8, W)
     with timer.span('part.epilogue'):
         return _exact_epilogue(*partials, gz8.shape[1], scales, Qty, yyp, d,
-                               k, planes)
+                               k)
 
 
-def _exact_epilogue(GWd, MWd, nmiss_i, s_i, ss_i, N, scales, Qty, yyp, d, k,
-                    planes=_EXACT_PLANES):
+def _exact_epilogue(GWd, MWd, nmiss_i, s_i, ss_i, N, scales, Qty, yyp, d, k):
     """f64 recombine of the exact pass's int32 partials, then the OLS."""
     R = GWd.shape[0]
-    KP = GWd.shape[1] // planes
+    KP = GWd.shape[1] // _EXACT_PLANES
     # recombine digit partials in f64: (R, planes, KP) · (planes, KP) → (R, KP)
-    GW = (GWd.reshape(R, planes, KP).to(torch.float64) * scales).sum(dim=1)
-    MW = (MWd.reshape(R, planes, KP).to(torch.float64) * scales).sum(dim=1)
+    GW = (GWd.reshape(R, _EXACT_PLANES, KP).to(torch.float64)
+          * scales).sum(dim=1)
+    MW = (MWd.reshape(R, _EXACT_PLANES, KP).to(torch.float64)
+          * scales).sum(dim=1)
     nmiss = nmiss_i.to(torch.float64)
     s = s_i.to(torch.float64)
     ss = ss_i.to(torch.float64)
@@ -373,56 +374,54 @@ def _operand(W) -> ExactOperand:
     return W if isinstance(W, ExactOperand) else exact_operand(W)
 
 
-def linreg_block_i8_exact(G8, Wdig, scales, Qty, yyp, d, k,
-                          planes=_EXACT_PLANES):
-    """`_exact_core` from int8 G8 (R, N), -1 = missing: (sum_x, ytx, beta,
-    se, t) f64. `Wdig` an `ExactOperand` or the (N, C) int8 planes."""
+def _split_g8(G8):
+    """int8 G8 (R, N), -1 = missing -> the (gz8, m8) pair of the exact
+    pass: gz8 zero where missing, m8 1 there."""
     miss = G8 < 0
     gz8 = torch.where(miss, torch.zeros((), dtype=torch.int8,
                                         device=G8.device), G8)
-    return _exact_core(gz8, miss.to(torch.int8), _operand(Wdig), scales, Qty,
-                       yyp, d, k, planes)
+    return gz8, miss.to(torch.int8)
 
 
-def linreg_block_gz_exact(gz8, m8, Wdig, scales, Qty, yyp, d, k,
-                          planes=_EXACT_PLANES):
+def linreg_block_i8_exact(G8, Wdig, scales, Qty, yyp, d, k):
+    """`_exact_core` from int8 G8 (R, N), -1 = missing: (sum_x, ytx, beta,
+    se, t) f64. `Wdig` an `ExactOperand` or the (N, C) int8 planes."""
+    return _exact_core(*_split_g8(G8), _operand(Wdig), scales, Qty, yyp, d,
+                       k)
+
+
+def linreg_block_gz_exact(gz8, m8, Wdig, scales, Qty, yyp, d, k):
     """`_exact_core` from an already decoded (gz8, m8) pair."""
-    return _exact_core(gz8, m8, _operand(Wdig), scales, Qty, yyp, d, k,
-                       planes)
+    return _exact_core(gz8, m8, _operand(Wdig), scales, Qty, yyp, d, k)
 
 
-def linreg_block_call_exact(packed, missing, Wdig, scales, Qty, yyp, d, k,
-                            planes=_EXACT_PLANES):
+def linreg_block_call_exact(packed, missing, Wdig, scales, Qty, yyp, d, k):
     """The exact path straight from packed calls: K6 decodes them on the
     device into the (gz8, m8) pair that K3 reads, so the host does no work
     per entry. `missing` None: no entry is missing."""
     gz8, m8 = decode_packed_gt(packed, missing)
-    return _exact_core(gz8, m8, _operand(Wdig), scales, Qty, yyp, d, k,
-                       planes)
+    return _exact_core(gz8, m8, _operand(Wdig), scales, Qty, yyp, d, k)
 
 
-def linreg_block_gz_exact_packed(gz8, m8, W, scales, Qty, yyp, d, k,
-                                 planes=_EXACT_PLANES) -> torch.Tensor:
+def linreg_block_gz_exact_packed(gz8, m8, W, scales, Qty, yyp, d,
+                                 k) -> torch.Tensor:
     """`_exact_core` from a decoded (gz8, m8) pair, as ONE stacked
     (R, 1+4P) f64 tensor so the host fetches a single buffer."""
     sum_x, ytx, beta, se, t = _exact_core(gz8, m8, W, scales, Qty, yyp,
-                                          d, k, planes)
+                                          d, k)
     return torch.cat([sum_x[:, None], ytx, beta, se, t], dim=1)
 
 
-def _linreg_block_i8_exact_packed(G8, W, scales, Qty, yyp, d, k,
-                                  planes=_EXACT_PLANES) -> torch.Tensor:
+def _linreg_block_i8_exact_packed(G8, W, scales, Qty, yyp, d,
+                                  k) -> torch.Tensor:
     """The stacked exact result from int8 G with -1 = missing."""
-    miss = G8 < 0
-    gz8 = torch.where(miss, torch.zeros((), dtype=torch.int8,
-                                        device=G8.device), G8)
-    return linreg_block_gz_exact_packed(gz8, miss.to(torch.int8), W,
-                                        scales, Qty, yyp, d, k, planes)
+    return linreg_block_gz_exact_packed(*_split_g8(G8), W, scales, Qty, yyp,
+                                        d, k)
 
 
 def _finish_stats_packed(packed_out, P, dof):
     """Split the stacked device result and finish p-values on host."""
-    import scipy.stats as st
+    from .regression import t_pvalues
     if isinstance(packed_out, torch.Tensor):
         with timer.span('fetch', bytes=packed_out.nbytes, transfers=1):
             packed_out = packed_out.cpu().numpy()
@@ -432,9 +431,8 @@ def _finish_stats_packed(packed_out, P, dof):
     beta = arr[:, 1 + P:1 + 2 * P]
     se = arr[:, 1 + 2 * P:1 + 3 * P]
     t = arr[:, 1 + 3 * P:1 + 4 * P]
-    with timer.span('linreg.pvalues', rows=t.shape[0]), \
-            np.errstate(all='ignore'):
-        p = 2 * st.t.sf(np.abs(t), dof) if dof > 0 else np.full_like(t, np.nan)
+    with timer.span('linreg.pvalues', rows=t.shape[0]):
+        p = t_pvalues(t, dof)
     return dict(sum_x=sum_x, y_transpose_x=ytx, beta=beta,
                 standard_error=se, t_stat=t, p_value=p)
 
@@ -636,13 +634,11 @@ def linreg_block_i8(G8: torch.Tensor, W: torch.Tensor, Qty, yyp, d, k: int,
 
 
 def _finish_stats(out, dof):
-    import scipy.stats as st
+    from .regression import t_pvalues
     sum_x, ytx, beta, se, t = (np.asarray(v.cpu().numpy(), dtype=np.float64)
                                for v in out)
-    with np.errstate(all='ignore'):
-        p = 2 * st.t.sf(np.abs(t), dof) if dof > 0 else np.full_like(t, np.nan)
     return dict(sum_x=sum_x, y_transpose_x=ytx, beta=beta,
-                standard_error=se, t_stat=t, p_value=p)
+                standard_error=se, t_stat=t, p_value=t_pvalues(t, dof))
 
 
 def linreg_stats_i8(G8: torch.Tensor, Q: np.ndarray, Ys: np.ndarray,

@@ -70,13 +70,27 @@ def linreg_block_f32(G, missing, sqrtw, Q, Ys, Qty, yyp, d):
                             torch.tensor(d, dtype=f32, device=G.device))
 
 
+def t_pvalues(t: np.ndarray, dof) -> np.ndarray:
+    """Two-sided p-values of t statistics, 2·P(T > |t|) for Student's t
+    with `dof` degrees of freedom (scipy), f64; all NaN when dof <= 0."""
+    import scipy.stats as st
+    with np.errstate(all='ignore'):
+        p = 2 * st.t.sf(np.abs(t), dof) if dof > 0 else np.full_like(t, np.nan)
+    return np.asarray(p, dtype=np.float64)
+
+
 def linreg_stats(G: np.ndarray, missing: np.ndarray, sqrtw, Q: np.ndarray,
                  Ys: np.ndarray, Qty: np.ndarray, yyp: np.ndarray, dof: int,
-                 device, precision: str = 'float64'):
-    """Host wrapper: runs `linreg_block` on `device` (`linreg_block_f32`
-    unless `precision` is 'float64', as the reference selects) and returns
-    numpy (R, P) f64 arrays incl. p-values (2·pT(-|t|, d), scipy t-dist)."""
-    import scipy.stats as st
+                 precision: str = 'float64'):
+    """Host wrapper: runs `linreg_block` (`linreg_block_f32` for
+    `precision` 'float32') on the session's device and returns numpy (R, P)
+    f64 arrays incl. p-values (`t_pvalues`). The column plane may be host
+    arrays or tensors on that device."""
+    if precision not in ('float64', 'float32'):
+        raise ValueError(f"linreg_stats: precision is 'float64' or "
+                         f"'float32', got {precision!r}")
+    from ..context import current_device
+    device = current_device()
     block = linreg_block if precision == 'float64' else linreg_block_f32
     if sqrtw is None:
         sqrtw = np.ones(G.shape[1])
@@ -89,10 +103,8 @@ def linreg_stats(G: np.ndarray, missing: np.ndarray, sqrtw, Q: np.ndarray,
                 f64(sqrtw), f64(Q), f64(Ys), f64(Qty), f64(yyp), float(dof))
     sum_x, ytx, beta, se, t = (v.cpu().numpy().astype(np.float64)
                                for v in out)
-    with np.errstate(all='ignore'):
-        p = 2 * st.t.sf(np.abs(t), dof) if dof > 0 else np.full_like(t, np.nan)
     return dict(sum_x=sum_x, y_transpose_x=ytx, beta=beta,
-                standard_error=se, t_stat=t, p_value=p)
+                standard_error=se, t_stat=t, p_value=t_pvalues(t, dof))
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,7 @@ class CIRunner:
                     # the reference runs each step in a container with the
                     # repo checked out; here the step cds into the build's
                     # persistent merge checkout
+                    # quoted: the workdir is named from the branch's name
                     command = f'cd {shlex.quote(workdir)} && ({command})'
             else:
                 # non-runnable kinds are recorded no-ops (see module doc)
@@ -189,6 +190,7 @@ class PRWatcher:
         import subprocess
         for branch, sha in self._pr_branches().items():
             rec = self.prs.get(branch)
+            # a stale PR (the target moved under it, merge_ready) rebuilds
             if rec is not None and rec['sha'] == sha and \
                     rec['state'] != 'stale':
                 if rec['state'] == 'pending':     # refresh a running build
@@ -205,6 +207,7 @@ class PRWatcher:
                    'workdir': None}
             self.prs[branch] = rec
             self._n_builds = getattr(self, '_n_builds', 0) + 1
+            # a branch name may hold `$`, `(` and backquotes: kept out of paths
             wt_dir = os.path.join(
                 self._build_root,
                 f"{re.sub(r'[^A-Za-z0-9._-]', '_', branch)}-{sha[:10]}-"

@@ -18,6 +18,7 @@ class Database:
         # one statement at a time on the connection (executor threads)
         self._lock = threading.Lock()
         # the open transaction's lock and the task that holds it
+        # (a threading.Lock held across awaits deadlocked a nested db call)
         self._tx_lock = asyncio.Lock()
         self._tx_task: Optional[asyncio.Task] = None
 

@@ -123,6 +123,7 @@ class TableStage:
 
     def collect_batches(self) -> List[Batch]:
         from .utils import timer
+        # in the action of the method that made the stage (its `trace`)
         with timer.carried(getattr(self, 'trace', None)), timer.action(), \
                 timer.span('table.collect', partitions=len(self.contexts)):
             return self._collect_batches(timer)
@@ -2333,6 +2334,7 @@ def _device_sample_sort(stage: 'TableStage', batches: List['Batch'],
     if order is None:
         return None
     merged = Batch.concat(batches) if len(batches) > 1 else batches[0]
+    # one output partition per slot of the session's mesh
     from .parallel.mesh import get_mesh
     nd = get_mesh().size
     bounds = [(i * len(order)) // nd for i in range(nd + 1)]

@@ -523,6 +523,7 @@ def filter_samples(vds: VariantDataset, samples, *, keep: bool = True,
 
 
 def filter_variants(vds: VariantDataset, variants_table, *, keep: bool = True) -> VariantDataset:
+    # keys hold the alleles list: frozen to hash; a locus key matches a prefix
     from ..table import _hashable_key
     tkey = list(variants_table._stage.key)
     keyset = {_hashable_key(tuple(r[k] for k in tkey))

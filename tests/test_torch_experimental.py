@@ -1,8 +1,8 @@
 """`hl.experimental` in the port against hail_tpu on the same inputs, on the
 CPU.
 
-The port's `experimental/` is the reference's, copied by
-`copy_host_plane.py` with one edit: `ld_score`'s r = Z·Zᵀ, its r²
+The port's `experimental/` is the reference's with one change:
+`ld_score`'s r = Z·Zᵀ, its r²
 adjustment and its window sums run on the session's device
 (`ops/ldscore.py`, torch f64, in row strips). So `ld_score` is held to the
 reference at rtol 1e-10 (the row sums add in another order) and to a numpy

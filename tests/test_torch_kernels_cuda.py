@@ -900,9 +900,9 @@ def test_digit_planes_edge_shapes(dev, N, k, P):
 
 def test_exact_consts_launch_k7_once(dev):
     """`exact_consts` on the card makes its operand with K7: one launch of
-    each entry point a call, and none from a hit of the constants' cache
-    of host arrays; tensors already on the card make no entry and launch
-    K7 at every call."""
+    each entry point a call, from host arrays or from tensors already on
+    the card; `_exact_consts_cached` keeps nothing, so each of its calls
+    launches K7 again."""
     from hail_tpu_torch.methods import statgen
     from hail_tpu_torch.ops import _kernels, linreg_i8 as li
     Q, Ys = digit_plane_case('kg')
@@ -916,20 +916,14 @@ def test_exact_consts_launch_k7_once(dev):
     assert torch.equal(W.WT, li.exact_operand(torch.from_numpy(Wd_h).to(dev)).WT)
     assert sc.device.type == 'cuda' and torch.equal(sc.cpu(),
                                                     torch.from_numpy(sc_h))
-    statgen._EXACT_CONSTS_CACHE.clear()
-    a = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 2000, dev)
-    b = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 2000, dev)
-    assert b is a
-    assert [_kernels.launches[n] - b_ for n, b_ in zip(names, before)] == [2, 2]
-    # the card's column plane: tensors on the card are no cache entry, and
-    # each call makes its operand anew
+    # the column plane's tensors on the card: each call makes its operand
     Qd, Ysd, Qtyd, yypd = (torch.from_numpy(v).to(dev)
                            for v in (Q, Ys, Qty, yyp))
     a = statgen._exact_consts_cached(Qd, Ysd, Qtyd, yypd, 2000, dev)
     b = statgen._exact_consts_cached(Qd, Ysd, Qtyd, yypd, 2000, dev)
-    assert b is not a and len(statgen._EXACT_CONSTS_CACHE) == 1
+    assert b is not a and a[2] is Qtyd and a[3] is yypd
     assert torch.equal(a[0].WT, W.WT) and torch.equal(b[0].WT, W.WT)
-    assert [_kernels.launches[n] - b_ for n, b_ in zip(names, before)] == [4, 4]
+    assert [_kernels.launches[n] - b_ for n, b_ in zip(names, before)] == [3, 3]
 
 
 def test_digit_planes_reject_bad_input(dev):
@@ -964,7 +958,6 @@ def test_gwas_through_k7_equals_host_planes(dev, monkeypatch):
                   't_stat', 'p_value')
 
         def stats():
-            statgen._EXACT_CONSTS_CACHE.clear()
             before = _kernels.launches['hail_digit_planes']
             res = hl.linear_regression_rows(y=mt.pheno,
                                             x=mt.GT.n_alt_alleles(),
@@ -996,12 +989,12 @@ def test_gwas_column_plane_on_the_card_equals_the_host_qr(dev, monkeypatch,
                                                            case):
     """`linear_regression_rows` on the card makes its column plane there
     (`statgen._column_plane_device`: the QR, Qty and yyp in f64 on the
-    card, handed to K7): every field equals the host-QR route's (numpy's
-    QR, the constants keyed and copied from host arrays) at rtol 1e-10,
-    with every sample kept, with a phenotype missing for some samples, with
-    the intercept alone (k = 1), and from an integer entry field.
-    `linreg.qr` records `on_card` True, no `consts.key` span is recorded,
-    and K7's two entry points launch once a call."""
+    card, handed to K7): every field equals that of a numpy column plane
+    (numpy's QR on the host, its arrays copied to the card: the test's
+    oracle) at rtol 1e-10, with every sample kept, with a phenotype
+    missing for some samples, with the intercept alone (k = 1), and from
+    an integer entry field. One `linreg.qr` span records the group's rows
+    and columns, and K7's two entry points launch once a call."""
     import hail_tpu_torch as hl
     from hail_tpu_torch.methods import statgen
     from hail_tpu_torch.ops import _kernels
@@ -1019,7 +1012,6 @@ def test_gwas_column_plane_on_the_card_equals_the_host_qr(dev, monkeypatch,
         covs = [1.0] if case == 'intercept_only' else [1.0, mt.c0, mt.c1]
 
         def stats():
-            statgen._EXACT_CONSTS_CACHE.clear()
             before = [_kernels.launches[n] for n in names]
             timer.clear()
             with timer.recording():
@@ -1039,19 +1031,15 @@ def test_gwas_column_plane_on_the_card_equals_the_host_qr(dev, monkeypatch,
             Qty = Q.T @ Ys
             return Q, Ys, Qty, (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
         monkeypatch.setattr(statgen, '_column_plane_device', host_qr)
-        host, host_spans, host_launches = stats()
+        host, _, host_launches = stats()
     finally:
         hl.stop()
     n_kept = 1003 if case != 'missing_pheno' else int(card['n'][0])
     assert case != 'missing_pheno' or n_kept < 1003
-    assert [(s.attrs['on_card'], s.attrs['rows'], s.attrs['cols'])
-            for s in spans if s.name == 'linreg.qr'] == [
-        (True, n_kept, len(covs))]
-    assert not [s for s in spans if s.name == 'consts.key']
-    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] \
-        == [False]
+    assert [s.attrs for s in spans if s.name == 'linreg.qr'] == [
+        {'rows': n_kept, 'cols': len(covs)}]
+    assert len([s for s in spans if s.name == 'linreg.consts']) == 1
     assert launches == host_launches == [1, 1]
-    assert [s for s in host_spans if s.name == 'consts.key']
     for f in fields:
         assert card[f].shape == (192,) and np.isfinite(card[f]).all(), f
         np.testing.assert_allclose(card[f], host[f], rtol=1e-10, err_msg=f)

@@ -152,6 +152,7 @@ def test_block_i8_exact_packed_matches_reference():
 def test_linreg_stats_i8_exact_matches_f64_formula():
     """Mirrors tests/test_linreg_i8.py::test_exact_i8_kernel_matches_f64_path
     with the port: the exact int8 path reproduces the f64 formula."""
+    import hail_tpu_torch as hl
     from hail_tpu_torch.ops.regression import linreg_stats
     rng = np.random.default_rng(7)
     R, N, k, P = 40, 257, 3, 2
@@ -159,8 +160,12 @@ def test_linreg_stats_i8_exact_matches_f64_formula():
     G8[rng.random((R, N)) < 0.15] = -1
     G8[5] = -1                                   # all-missing row -> NaN
     Q, Y, Qty, yyp, d = _ols_setup(N, k, P, seed=8)
-    want = linreg_stats(np.where(G8 < 0, 0, G8).astype(np.float64), G8 < 0,
-                        None, Q, Y, Qty, yyp, d, 'cpu')
+    hl.init(device='cpu', quiet=True)
+    try:
+        want = linreg_stats(np.where(G8 < 0, 0, G8).astype(np.float64),
+                            G8 < 0, None, Q, Y, Qty, yyp, d)
+    finally:
+        hl.stop()
     got = port.linreg_stats_i8_exact(torch.from_numpy(G8), Q, Y, Qty, yyp, d)
     for f in ('sum_x', 'y_transpose_x', 'beta', 'standard_error', 't_stat',
               'p_value'):

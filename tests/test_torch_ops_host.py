@@ -302,41 +302,16 @@ def test_exact_consts_carry_the_kernel_layout(N, k, P):
     np.testing.assert_array_equal(W2.WT.numpy(), want)
 
 
-def test_exact_consts_cached_keep_the_kernel_layout():
-    """A second call with the same operands returns the same constants,
-    kernel layout included: nothing is rebuilt per call or per launch."""
-    from hail_tpu_torch.methods.statgen import _exact_consts_cached
-    rng = np.random.default_rng(5)
-    Q = np.linalg.qr(rng.normal(size=(40, 3)))[0]
-    Ys = rng.normal(size=(40, 1))
-    Qty = Q.T @ Ys
-    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
-    a = _exact_consts_cached(Q, Ys, Qty, yyp, 36, 'cpu')
-    b = _exact_consts_cached(Q, Ys, Qty, yyp, 36, 'cpu')
-    assert b is a and b[0].WT is a[0].WT
-
-
-def test_exact_consts_cache_keys_on_shape():
-    """Equal bytes in other shapes are other constants (the reference keys
-    on the bytes alone)."""
-    from hail_tpu_torch.methods.statgen import _exact_consts_cached
-    rng = np.random.default_rng(0)
-    Q = np.linalg.qr(rng.normal(size=(12, 2)))[0]
-    Ys = rng.normal(size=(12, 2))
-    Qty = Q.T @ Ys
-    yyp = (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
-    a = _exact_consts_cached(Q, Ys, Qty, yyp, 9, 'cpu')
-    assert _exact_consts_cached(Q, Ys, Qty, yyp, 9, 'cpu') is a
-    # the very same bytes, other shapes
-    b = _exact_consts_cached(Q.reshape(6, 4), Ys.reshape(6, 4),
-                             Qty.reshape(1, 4), yyp, 9, 'cpu')
-    assert b is not a
-    assert tuple(a[0].Wdig.shape) == (12, 7 * 4)
-    assert tuple(b[0].Wdig.shape) == (6, 7 * 8)
+@pytest.fixture
+def cpu_session():
+    import hail_tpu_torch as hl
+    hl.init(device='cpu', quiet=True)
+    yield
+    hl.stop()
 
 
 def _host_column_plane(Cs, Ys):
-    """The numpy route of `linear_regression_rows`' column plane."""
+    """A numpy column plane: the oracle of `_column_plane_device`."""
     Q = np.linalg.qr(Cs)[0] if Cs.shape[1] else np.zeros((Cs.shape[0], 0))
     Qty = Q.T @ Ys
     return Q, Qty, (Ys * Ys).sum(0) - (Qty * Qty).sum(0)
@@ -344,12 +319,12 @@ def _host_column_plane(Cs, Ys):
 
 @pytest.mark.parametrize('N,k,P', [(64, 0, 2), (300, 1, 1), (257, 3, 2),
                                    (1003, 26, 16)])
-def test_column_plane_device_matches_the_host_route(N, k, P):
+def test_column_plane_device_matches_the_host_route(N, k, P, cpu_session):
     """`statgen._column_plane_device` on CPU tensors (torch.linalg.qr, f64)
     gives the numpy route's projection and yyp, and the statistics made
     from its tensors (`exact_consts` on tensors: `_digit_planes_plain`,
-    then the exact pass, or the f64 route's `linreg_stats`) equal the
-    numpy route's at rtol 1e-10; k = 0 has no QR at all."""
+    then the exact pass, or the f64 route's `linreg_stats`) equal those of
+    numpy's at rtol 1e-10; k = 0 has no QR at all."""
     from hail_tpu_torch.methods.statgen import _column_plane_device
     from hail_tpu_torch.ops import linreg_i8 as li
     from hail_tpu_torch.ops.regression import linreg_stats
@@ -379,33 +354,32 @@ def test_column_plane_device_matches_the_host_route(N, k, P):
     assert np.isfinite(want.numpy()).all()
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10)
     G, M = G8.numpy().astype(np.float64), G8.numpy() < 0
-    want = linreg_stats(G, M, None, Qh, Ys, Qtyh, yyph, d, 'cpu')
-    got = linreg_stats(G, M, None, Q, Ysd, Qty, yyp, d, 'cpu')
+    want = linreg_stats(G, M, None, Qh, Ys, Qtyh, yyph, d)
+    got = linreg_stats(G, M, None, Q, Ysd, Qty, yyp, d)
     for f, v in want.items():
         np.testing.assert_allclose(got[f], v, rtol=1e-10, err_msg=f)
 
 
 def test_exact_consts_of_tensors_bypass_the_cache():
-    """Tensors already on the device (the card's column plane) are made
-    into constants directly: no content key, no cache entry, `hit` False,
-    nothing of Qty and yyp copied."""
+    """The constants are made at every call from the column plane's
+    tensors, in one `linreg.consts` span each: nothing is kept between
+    calls, and nothing of Qty and yyp is copied."""
     from hail_tpu_torch.methods import statgen
     from hail_tpu_torch.utils import timer
     rng = np.random.default_rng(7)
     Q, Ys, Qty, yyp = statgen._column_plane_device(
         np.concatenate([np.ones((50, 1)), rng.normal(size=(50, 2))], axis=1),
         rng.normal(size=(50, 2)), 'cpu')
-    statgen._EXACT_CONSTS_CACHE.clear()
     timer.clear()
     with timer.recording(), timer.action():
         a = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 46, 'cpu')
         b = statgen._exact_consts_cached(Q, Ys, Qty, yyp, 46, 'cpu')
     spans = timer.spans()
     timer.clear()
-    assert b is not a and not statgen._EXACT_CONSTS_CACHE
+    assert b is not a and b[0].WT is not a[0].WT
     assert torch.equal(a[0].WT, b[0].WT) and a[2] is Qty and a[3] is yyp
-    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] \
-        == [False, False]
-    assert not [s for s in spans if s.name == 'consts.key']
+    assert [s.attrs for s in spans if s.name == 'linreg.consts'] == [{}, {}]
+    assert {s.name for s in spans} == {'linreg.consts', 'consts.planes',
+                                       'consts.copy'}
     assert [s.attrs['bytes'] for s in spans if s.name == 'consts.copy'] \
         == [a[1].nbytes] * 2

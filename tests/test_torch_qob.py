@@ -1,5 +1,5 @@
-"""Query-on-Batch in the port (backend/service_backend.py, its EDITs in
-copy_host_plane.py): partitions run as jobs of the single-node Batch
+"""Query-on-Batch in the port (backend/service_backend.py and
+backend/qob_worker.py): partitions run as jobs of the single-node Batch
 service in workers that run `hail_tpu_torch.backend.qob_worker` on the CPU,
 with per-partition retry and failure surfacing, while the driver keeps the
 device. The counterparts of tests/test_qob_backend.py's seven cases, then

@@ -193,17 +193,24 @@ def _ols_inputs(R, N, k, P, seed):
     return G, miss, sw, Q, Ys, Qty, yyp, N - k - 1
 
 
+@pytest.fixture
+def cpu_session():
+    import hail_tpu_torch as hl
+    hl.init(device='cpu', quiet=True)
+    yield
+    hl.stop()
+
+
 @pytest.mark.parametrize('weighted', [False, True])
 @pytest.mark.parametrize('R,N,k,P', [(30, 200, 3, 1), (9, 77, 1, 2)])
-def test_linreg_stats_float32(R, N, k, P, weighted):
+def test_linreg_stats_float32(R, N, k, P, weighted, cpu_session):
     G, miss, sw, Q, Ys, Qty, yyp, dof = _ols_inputs(R, N, k, P, R + N)
     sw = sw if weighted else None
     want = ref.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof,
                             precision='float32')
     got = port.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof,
-                            torch.device('cpu'), precision='float32')
-    f64 = port.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof,
-                            torch.device('cpu'))
+                            precision='float32')
+    f64 = port.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof)
     for name in ('sum_x', 'y_transpose_x', 'beta', 'standard_error',
                  't_stat', 'p_value'):
         assert got[name].dtype == np.float64
@@ -212,6 +219,24 @@ def test_linreg_stats_float32(R, N, k, P, weighted):
         np.testing.assert_allclose(got[name], f64[name], rtol=2e-4,
                                    atol=1e-6, err_msg=f'{name} vs f64')
     assert not np.array_equal(got['beta'], f64['beta'])   # it is f32
+
+
+@pytest.mark.parametrize('precision,rtol', [('float64', 1e-10),
+                                            ('float32', 2e-4)])
+def test_linreg_stats_takes_the_reference_arguments(precision, rtol,
+                                                    cpu_session):
+    """`linreg_stats` has the reference's signature: `precision` in the
+    ninth place, the session's device; any other ninth argument (a device
+    string) is refused, where the reference would take the f32 route."""
+    G, miss, sw, Q, Ys, Qty, yyp, dof = _ols_inputs(12, 90, 2, 2, 5)
+    want = ref.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof, precision)
+    got = port.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof, precision)
+    for name, v in want.items():
+        assert got[name].dtype == np.float64
+        np.testing.assert_allclose(got[name], v, rtol=rtol, atol=1e-6,
+                                   err_msg=name)
+    with pytest.raises(ValueError, match='precision'):
+        port.linreg_stats(G, miss, sw, Q, Ys, Qty, yyp, dof, 'cpu')
 
 
 def test_linreg_block_f32_is_true_f32():

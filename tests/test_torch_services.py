@@ -2,8 +2,8 @@
 and its client, gear's middleware, metrics, the Database, the CI service
 and the docs site): the counterparts of tests/test_platform_services.py,
 test_ci_service.py and test_docs_site.py, run against the port, then the
-faults of the reference that the port does not copy (copy_host_plane.py's
-EDITs of services/ci_service.py and services/database.py), each with a
+faults of the reference that the port repairs (in services/ci_service.py
+and services/database.py), each with a
 test that the port is right where it differs.
 
 HOME and XDG_CONFIG_HOME point at a temporary directory in every test, so

@@ -168,6 +168,41 @@ def test_linear_regression_rows_matches_reference(hl, case, monkeypatch):
             assert r1.beta == r2.beta or np.isnan(r2.beta)
 
 
+@pytest.mark.parametrize('case,groups', [('gt', 1), ('chained', 2),
+                                         ('weighted', 1), ('float_x', 1)])
+def test_every_route_makes_one_column_plane(hl, case, groups, monkeypatch):
+    """The exact route of one group and of chained groups, the weighted
+    route and the float-x route each make a group's column plane once, on
+    the session's device (`statgen._column_plane_device`: one `linreg.qr`
+    span a group, no numpy QR), and every field equals hail_tpu's at rtol
+    1e-10."""
+    from hail_tpu_torch.methods import statgen
+    from hail_tpu_torch.utils import timer
+    want = _regress(hl, build_mt('hail_tpu'), case).collect()
+    mt = build_mt('hail_tpu_torch')
+    planes = []
+    real = statgen._column_plane_device
+    monkeypatch.setattr(statgen, '_column_plane_device',
+                        lambda *a: planes.append(a[2]) or real(*a))
+
+    def no_numpy_qr(*a, **k):
+        raise AssertionError('numpy QR on the column plane')
+    monkeypatch.setattr(np.linalg, 'qr', no_numpy_qr)
+    timer.clear()
+    with timer.recording():
+        got = _regress(hlt, mt, case).collect()
+    spans = timer.spans()
+    timer.clear()
+    assert planes == [hlt.current_device()] * groups
+    qr = [s.attrs for s in spans if s.name == 'linreg.qr']
+    assert len(qr) == groups and all(a['cols'] == 3 for a in qr)
+    assert not [s for s in spans if s.name == 'consts.key']
+    assert len(got) == len(want) == PARTS * ROWS
+    for r_got, r_want in zip(got, want):
+        for f in FIELDS:
+            _assert_close(r_got[f], r_want[f], f'{r_want.locus}.{f}')
+
+
 GLM_SHAPE = dict(n_samples=200, rows=40, parts=2)
 
 

@@ -29,7 +29,7 @@ N_SAMPLES, ROWS, PARTS = 300, 50, 4
 PARENTS = {
     'linreg.call': None, 'linreg.columns': 'linreg.call',
     'linreg.qr': 'linreg.call', 'linreg.consts': 'linreg.call',
-    'consts.key': 'linreg.consts', 'consts.planes': 'linreg.consts',
+    'consts.planes': 'linreg.consts',
     'consts.copy': 'linreg.consts', 'table.collect': 'linreg.call',
     'collect.memo': 'table.collect', 'stage': 'table.collect',
     'partition': 'stage', 'part.lookup': 'partition',
@@ -86,8 +86,7 @@ def test_every_span_appears_with_its_parent(mt):
     # the first call fills the device cache, the second finds it
     assert [s.attrs['hit'] for s in spans if s.name == 'part.lookup'] == \
         [False] * PARTS + [True] * PARTS
-    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] == \
-        [False, False]
+    assert len([s for s in spans if s.name == 'linreg.consts']) == 2
     copies = [s.attrs['bytes'] for s in spans if s.name == 'ship.copy']
     assert copies == [ROWS * -(-N_SAMPLES // 4)] * PARTS
     assert sorted(s.attrs['index'] for s in spans
@@ -132,20 +131,20 @@ def test_fetch_counts_the_bytes_fetched(mt):
 
 
 def test_the_cpu_keeps_the_host_column_plane_and_its_cache(mt):
-    """On the CPU the column plane stays on the host (`linreg.qr` records
-    `on_card` False) and the constants of host arrays keep their content
-    key: a repeated phenotype hits the cache."""
-    from hail_tpu_torch.methods import statgen
-    statgen._EXACT_CONSTS_CACHE.clear()
+    """The CPU takes the card's column plane: one `linreg.qr` span per
+    phenotype group (its rows and columns alone), the constants made anew
+    in each call with no content key, and a repeated phenotype gives the
+    same statistics."""
     with timer.recording():
         first, again = _call(mt, mt.pheno), _call(mt, mt.pheno)
+        hlt.linear_regression_rows(
+            y=[[mt.pheno], [mt.pheno, mt.c1]], x=mt.GT.n_alt_alleles(),
+            covariates=[1.0, mt.c0])
     spans = timer.spans()
-    assert [(s.attrs['on_card'], s.attrs['rows'], s.attrs['cols'])
-            for s in spans if s.name == 'linreg.qr'] == \
-        [(False, N_SAMPLES, 2)] * 2
-    assert [s.attrs['hit'] for s in spans if s.name == 'linreg.consts'] == \
-        [False, True]
-    assert len([s for s in spans if s.name == 'consts.key']) == 2
+    assert [s.attrs for s in spans if s.name == 'linreg.qr'] == \
+        [{'rows': N_SAMPLES, 'cols': 2}] * 4
+    assert [s.attrs for s in spans if s.name == 'linreg.consts'] == [{}] * 2
+    assert not [s for s in spans if s.name == 'consts.key']
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
 
